@@ -1,0 +1,57 @@
+"""Carry the JAX side's arrays across into the port's objects.
+
+Everything here takes plain arrays (NumPy, or anything ``np.asarray``
+accepts) and returns the port's objects, with tensors on ``device``.  With
+it, both packages compute from the very same code and encoded moment.  This
+module imports nothing of the JAX package: a JAX-side object is read
+through its attributes only (:func:`code_from`).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.coded_step import Scheme2, Scheme2Blocked
+from repro_torch.core.ldpc import LDPCCode
+from repro_torch.device import resolve_device
+
+__all__ = ["code_from_arrays", "code_from", "tensor", "scheme2_blocked_from_arrays",
+           "scheme2_from_arrays"]
+
+_CODE_FIELDS = ("H", "G", "N", "K", "l", "r", "kind", "seed")
+
+
+def tensor(a, device=None) -> torch.Tensor:
+    """A float32 copy of the array ``a`` as a tensor on ``device``."""
+    return torch.as_tensor(np.array(a), dtype=torch.float32).to(resolve_device(device))
+
+
+def code_from_arrays(H, G, N: int, K: int, l: int, r: int, kind: str = "ldpc",
+                     seed: int = 0) -> LDPCCode:
+    """An :class:`LDPCCode` with exactly these H and G."""
+    return LDPCCode(H=np.array(H), G=np.array(G), N=int(N), K=int(K),
+                    l=int(l), r=int(r), kind=str(kind), seed=int(seed))
+
+
+def code_from(obj) -> LDPCCode:
+    """An :class:`LDPCCode` from any object with the attributes
+    ``H, G, N, K, l, r, kind, seed`` (such as the JAX package's code)."""
+    return code_from_arrays(**{f: getattr(obj, f) for f in _CODE_FIELDS})
+
+
+def scheme2_blocked_from_arrays(code: LDPCCode, C_blocks, b, lr: float,
+                                decode_iters: int, *, device=None,
+                                **kw) -> Scheme2Blocked:
+    """A :class:`Scheme2Blocked` over the encoded blocks ``C_blocks
+    (k/K, N, k)`` and moment vector ``b (k,)``; ``kw`` are its other
+    fields (``decode_backend``, ``projection``)."""
+    return Scheme2Blocked(code=code, C_blocks=tensor(C_blocks, device),
+                          b=tensor(b, device), lr=float(lr),
+                          decode_iters=int(decode_iters), **kw)
+
+
+def scheme2_from_arrays(code: LDPCCode, C, b, lr: float, decode_iters: int, *,
+                        device=None, **kw) -> Scheme2:
+    """A :class:`Scheme2` over the encoded moment ``C (N, k)`` and ``b``."""
+    return Scheme2(code=code, C=tensor(C, device), b=tensor(b, device),
+                   lr=float(lr), decode_iters=int(decode_iters), **kw)

@@ -1,0 +1,198 @@
+"""The paper's coded PGD step (Scheme 2), in PyTorch.
+
+Scheme 2 (the main contribution) per step ``t``:
+
+  1. worker products:   z = C θ_{t-1}            (each worker: one scalar/row)
+  2. erasures:          z_S  — stragglers' coordinates masked
+  3. peeling decode:    D rounds; unresolved set U_t
+  4. zero-fill:         ĉ (and b̂) zeroed on U_t
+  5. update:            θ_t = P_Θ(θ_{t-1} - η (ĉ_{1:k} - b̂))
+
+Steps 2–4 are the :class:`repro_torch.core.engine.CodedComputeEngine`
+pipeline; the schemes here own the encoded operator ``C`` / moment vector
+``b`` and the update rule.  :func:`run_pgd` drives any scheme for a number
+of steps as a Python loop on the tensors' device.
+
+Under Assumption 1 this is PSGD with an unbiased (1-q_D)-scaled gradient
+(Lemma 1) and converges at RB/((1-q_D)√T) (Theorem 1).  An optional
+``debias`` flag divides the estimate by (1-q_D).
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Callable, NamedTuple
+
+import torch
+
+from repro_torch.core import density_evolution
+from repro_torch.core.encoding import (Moments, encode_moment,
+                                       encode_moment_blocks)
+from repro_torch.core.engine import CodedComputeEngine, blocked_epilogue
+from repro_torch.core.ldpc import LDPCCode
+from repro_torch.optim import projections
+
+__all__ = ["Scheme2", "Scheme2Blocked", "run_pgd", "RunResult"]
+
+
+class RunResult(NamedTuple):
+    theta: torch.Tensor       # final iterate
+    theta_bar: torch.Tensor   # running average (Theorem 1 is stated for it)
+    errors: torch.Tensor      # (T,) ||theta_t - theta*|| if theta_star given, else loss
+    unresolved: torch.Tensor  # (T,) |U_t| — decode quality per step
+
+
+@dataclasses.dataclass(frozen=True)
+class Scheme2:
+    """LDPC moment-encoded approximate-gradient PGD (paper Scheme 2)."""
+
+    code: LDPCCode
+    C: torch.Tensor  # (N, k) encoded moment  = G @ M
+    b: torch.Tensor  # (k,)  = X^T y
+    lr: float
+    decode_iters: int = 10
+    decode_backend: str = "auto"  # dense | cuda | auto (decoder.py)
+    projection: Callable[[torch.Tensor], torch.Tensor] = projections.identity
+    debias: bool = False
+    q0_for_debias: float = 0.1
+
+    @classmethod
+    def build(cls, code: LDPCCode, moments: Moments, *, lr: float, **kw) -> "Scheme2":
+        return cls(code=code, C=encode_moment(code, moments.M), b=moments.b,
+                   lr=lr, **kw)
+
+    @property
+    def w(self) -> int:
+        return self.code.N
+
+    @functools.cached_property
+    def engine(self) -> CodedComputeEngine:
+        return CodedComputeEngine(self.code, decode_iters=self.decode_iters,
+                                  backend=self.decode_backend)
+
+    def _debias(self, g: torch.Tensor) -> torch.Tensor:
+        if not self.debias:
+            return g
+        qD = density_evolution.q_final(
+            self.q0_for_debias, self.code.l, self.code.r, self.decode_iters)
+        return g / max(1.0 - qD, 1e-6)
+
+    def finish_gradient(self, c_hat: torch.Tensor, unresolved: torch.Tensor):
+        """Scheme-2 gradient epilogue from recovered systematic values: zero
+        ``b̂`` on the unresolved set, subtract, (optionally) debias.  Returns
+        ``(gradient, unresolved_count)``."""
+        b_hat = torch.where(unresolved, 0.0, self.b)
+        return self._debias(c_hat - b_hat), unresolved.sum()
+
+    def gradient(self, theta: torch.Tensor, straggler_mask: torch.Tensor):
+        """Return (approx gradient, |U_t|)."""
+        z = self.C @ theta  # (N,) worker inner products (codeword of C)
+        c_hat, unresolved = self.engine.recover(z, straggler_mask)
+        return self.finish_gradient(c_hat, unresolved)
+
+    def step(self, theta: torch.Tensor, straggler_mask: torch.Tensor):
+        g, n_unresolved = self.gradient(theta, straggler_mask)
+        return self.projection(theta - self.lr * g), n_unresolved
+
+
+@dataclasses.dataclass(frozen=True)
+class Scheme2Blocked:
+    """Scheme 2 generalized to k > K (paper footnote 2): the k rows of M are
+    partitioned into k/K blocks, each encoded with the SAME (N=w, K) code;
+    worker j holds row j of every block (α = k/K rows) and returns α scalars.
+
+    A straggler erases the same coordinate of EVERY block's codeword, so all
+    k/K codewords share one erasure pattern and the decode is one pass with
+    payload width k/K.  This is the configuration of the paper's
+    experiments: a (40, 20) code with k ∈ {200, ..., 2000}.
+    """
+
+    code: LDPCCode
+    C_blocks: torch.Tensor  # (k/K, N, k)
+    b: torch.Tensor         # (k,)
+    lr: float
+    decode_iters: int = 10
+    decode_backend: str = "auto"  # dense | cuda | auto (decoder.py)
+    projection: Callable[[torch.Tensor], torch.Tensor] = projections.identity
+
+    @classmethod
+    def build(cls, code: LDPCCode, moments: Moments, *, lr: float, **kw):
+        return cls(code=code, C_blocks=encode_moment_blocks(code, moments.M),
+                   b=moments.b, lr=lr, **kw)
+
+    @property
+    def w(self) -> int:
+        return self.code.N
+
+    @functools.cached_property
+    def engine(self) -> CodedComputeEngine:
+        return CodedComputeEngine(self.code, decode_iters=self.decode_iters,
+                                  backend=self.decode_backend)
+
+    def worker_products(self, theta: torch.Tensor) -> torch.Tensor:
+        """``Z (N, k/K)``: worker ``j``'s inner products with ``θ``, one per
+        block.  A batched product over the blocks: ``torch.matmul`` of the
+        3-D ``C_blocks`` with a vector runs as one matrix-vector product,
+        which the card computes several times slower (PERF.md)."""
+        nb, _, k = self.C_blocks.shape
+        Z = torch.bmm(self.C_blocks, theta.expand(nb, k).unsqueeze(-1))
+        return Z.squeeze(-1).T.contiguous()
+
+    def gradient(self, theta: torch.Tensor, straggler_mask: torch.Tensor):
+        eng = self.engine
+        nb = self.C_blocks.shape[0]
+        Z = self.worker_products(theta)
+        dec = eng.decode(eng.erase(Z, straggler_mask), straggler_mask)
+        g, unresolved_flat = blocked_epilogue(dec.values, dec.erased, self.b,
+                                              K=self.code.K, nb=nb)
+        return g, unresolved_flat.sum()
+
+    def step(self, theta: torch.Tensor, straggler_mask: torch.Tensor):
+        g, aux = self.gradient(theta, straggler_mask)
+        return self.projection(theta - self.lr * g), aux
+
+
+def run_pgd(
+    scheme,
+    theta0: torch.Tensor,
+    straggler_model,
+    steps: int,
+    *,
+    generator: torch.Generator | None = None,
+    masks: torch.Tensor | None = None,
+    theta_star: torch.Tensor | None = None,
+    loss_fn: Callable[[torch.Tensor], torch.Tensor] | None = None,
+) -> RunResult:
+    """Drive any scheme (``.w``, ``.step(theta, mask)``) for ``steps``
+    steps on ``theta0``'s device: draw a straggler mask, take a coded step,
+    track the error.
+
+    ``masks`` — a ``(steps, w)`` bool tensor — replaces sampling, so two
+    runs (or two packages) can share one straggler realization; otherwise
+    each step draws from ``straggler_model`` with ``generator``.  Nothing
+    is copied to the host inside the loop.
+    """
+    w = scheme.w
+    if masks is not None:
+        if tuple(masks.shape) != (steps, w):
+            raise ValueError(f"masks must be ({steps}, {w}); got "
+                             f"{tuple(masks.shape)}")
+        masks = masks.to(theta0.device, torch.bool)
+
+    def metric(theta):
+        if theta_star is not None:
+            return torch.linalg.vector_norm(theta - theta_star)
+        if loss_fn is not None:
+            return loss_fn(theta)
+        return torch.linalg.vector_norm(theta)
+
+    theta, tbar = theta0, torch.zeros_like(theta0)
+    errs, unres = [], []
+    for t in range(steps):
+        mask = (masks[t] if masks is not None
+                else straggler_model.sample(generator, w, device=theta0.device))
+        theta, unresolved = scheme.step(theta, mask)
+        tbar = (tbar * float(t) + theta) / (t + 1.0)
+        errs.append(metric(theta))
+        unres.append(unresolved)
+    return RunResult(theta, tbar, torch.stack(errs), torch.stack(unres))

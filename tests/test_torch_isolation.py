@@ -1,0 +1,66 @@
+"""The port stands alone: it imports neither JAX nor the JAX package."""
+import json
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
+
+# A 2-step CPU slice through the port's public entry points; prints the
+# modules of JAX or the JAX package that ended up loaded.
+_SLICE = """
+import json, sys, torch
+from repro_torch.core import (FixedCountStragglers, Scheme2Blocked,
+                              make_regular_ldpc, run_pgd, second_moment)
+from repro_torch.core.schemes import Uncoded
+from repro_torch.data import make_linear_problem
+import repro_torch.convert, repro_torch.kernels.build
+prob = make_linear_problem(256, 80, seed=0, device="cpu")
+code = make_regular_ldpc(20, seed=0)
+scheme = Scheme2Blocked.build(code, second_moment(prob.X, prob.y), lr=prob.lr,
+                              decode_iters=12)
+gen = torch.Generator().manual_seed(0)
+res = run_pgd(scheme, torch.zeros(80), FixedCountStragglers(10), 2,
+              generator=gen, theta_star=prob.theta_star)
+run_pgd(Uncoded(prob.X, prob.y, w=40, lr=prob.lr), torch.zeros(80),
+        FixedCountStragglers(10), 2, generator=gen)
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "jaxlib", "repro") or m.startswith(("jax.", "jaxlib.", "repro.")))
+print(json.dumps({"bad": bad, "errors": res.errors.tolist()}))
+"""
+
+
+def test_slice_runs_without_jax_or_repro():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _SLICE], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result["bad"] == []
+    assert len(result["errors"]) == 2
+
+
+def _sources():
+    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_import_of_jax_or_repro(path):
+    hits = [m.group(0).strip() for m in FORBIDDEN.finditer(path.read_text())]
+    assert hits == []
+
+
+@pytest.mark.parametrize("line,forbidden", [
+    ("import jax", True), ("import jax.numpy as jnp", True),
+    ("from jaxlib import xla_client", True), ("import repro", True),
+    ("from repro.core import ldpc", True), ("    from repro import obs", True),
+    ("import repro_torch", False), ("from repro_torch.core import ldpc", False),
+    ("import jaxtyping", False), ("x = 1  # import jax", False),
+])
+def test_forbidden_pattern(line, forbidden):
+    assert bool(FORBIDDEN.search(line)) is forbidden
