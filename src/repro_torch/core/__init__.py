@@ -1,7 +1,8 @@
 """The paper's primary contribution: LDPC moment-encoded robust gradient
 descent, on PyTorch and CUDA."""
 from repro_torch.core.coded_step import RunResult, Scheme2, Scheme2Blocked, run_pgd
-from repro_torch.core.decoder import DecodeResult, peel_decode
+from repro_torch.core.decoder import (DecodeResult, peel_decode, peel_decode_adaptive,
+                                      peel_decode_batch, peel_decode_batch_adaptive)
 from repro_torch.core.density_evolution import q_final, qd_sequence, threshold
 from repro_torch.core.encoding import (Moments, encode_moment,
                                        encode_moment_blocks, second_moment)
@@ -12,7 +13,8 @@ from repro_torch.core.straggler import BernoulliStragglers, FixedCountStragglers
 
 __all__ = [
     "LDPCCode", "make_regular_ldpc", "make_parity_only_ldpc",
-    "peel_decode", "DecodeResult",
+    "peel_decode", "peel_decode_batch", "peel_decode_adaptive",
+    "peel_decode_batch_adaptive", "DecodeResult",
     "CodedComputeEngine", "blocked_epilogue",
     "qd_sequence", "q_final", "threshold",
     "Moments", "second_moment", "encode_moment", "encode_moment_blocks",

@@ -10,8 +10,11 @@ Scheme 2 (the main contribution) per step ``t``:
 
 Steps 2–4 are the :class:`repro_torch.core.engine.CodedComputeEngine`
 pipeline; the schemes here own the encoded operator ``C`` / moment vector
-``b`` and the update rule.  :func:`run_pgd` drives any scheme for a number
-of steps as a Python loop on the tensors' device.
+``b`` and the update rule.  The engine's batch axis gives Scheme 2 a
+batched query path (:meth:`Scheme2.gradient_batch`): B concurrent
+(θ, straggler-mask) queries, one decode launch — the serving primitive
+behind :mod:`repro_torch.serving.coded_queries`.  :func:`run_pgd` drives
+any scheme for a number of steps as a Python loop on the tensors' device.
 
 Under Assumption 1 this is PSGD with an unbiased (1-q_D)-scaled gradient
 (Lemma 1) and converges at RB/((1-q_D)√T) (Theorem 1).  An optional
@@ -51,6 +54,9 @@ class Scheme2:
     b: torch.Tensor  # (k,)  = X^T y
     lr: float
     decode_iters: int = 10
+    # early exit within decode_iters rounds (the decode's effort tracks the
+    # stragglers); per-slot on gradient_batch
+    adaptive: bool = False
     decode_backend: str = "auto"  # dense | cuda | auto (decoder.py)
     projection: Callable[[torch.Tensor], torch.Tensor] = projections.identity
     debias: bool = False
@@ -68,7 +74,13 @@ class Scheme2:
     @functools.cached_property
     def engine(self) -> CodedComputeEngine:
         return CodedComputeEngine(self.code, decode_iters=self.decode_iters,
-                                  backend=self.decode_backend)
+                                  backend=self.decode_backend,
+                                  adaptive=self.adaptive)
+
+    def worker_mask_to_erasure(self, mask: torch.Tensor) -> torch.Tensor:
+        """Worker straggler mask(s) ``(..., w)`` → erasure mask(s) over the
+        codeword: row ``j`` is worker ``j`` (N == w)."""
+        return mask
 
     def _debias(self, g: torch.Tensor) -> torch.Tensor:
         if not self.debias:
@@ -79,15 +91,38 @@ class Scheme2:
 
     def finish_gradient(self, c_hat: torch.Tensor, unresolved: torch.Tensor):
         """Scheme-2 gradient epilogue from recovered systematic values: zero
-        ``b̂`` on the unresolved set, subtract, (optionally) debias.  Returns
-        ``(gradient, unresolved_count)``."""
+        ``b̂`` on the unresolved set, subtract, (optionally) debias.
+
+        Shapes: ``c_hat (K,)`` / ``unresolved (K,)`` or batched ``(B, K)``
+        (``b`` broadcasts over the batch).  Returns ``(gradient,
+        unresolved_count)`` with the count reduced over the coordinate axis
+        only: one count per query.  :meth:`gradient`, :meth:`gradient_batch`
+        and the serving layer's continuous launches share it."""
         b_hat = torch.where(unresolved, 0.0, self.b)
-        return self._debias(c_hat - b_hat), unresolved.sum()
+        return self._debias(c_hat - b_hat), unresolved.sum(dim=-1)
 
     def gradient(self, theta: torch.Tensor, straggler_mask: torch.Tensor):
         """Return (approx gradient, |U_t|)."""
         z = self.C @ theta  # (N,) worker inner products (codeword of C)
-        c_hat, unresolved = self.engine.recover(z, straggler_mask)
+        erased = self.worker_mask_to_erasure(straggler_mask)
+        c_hat, unresolved = self.engine.recover(z, erased)
+        return self.finish_gradient(c_hat, unresolved)
+
+    def gradient_batch(self, theta_B: torch.Tensor,
+                       straggler_mask_B: torch.Tensor):
+        """B concurrent queries (θ_b, mask_b) → ((B, k) gradients, (B,)
+        unresolved counts), ONE decode launch.
+
+        Each query carries its own straggler realization; the worker
+        products are one ``(B, k) @ (k, N)`` matrix product and the B
+        peeling decodes one batched launch
+        (:meth:`CodedComputeEngine.decode_batch`) — per slot early exit for
+        an ``adaptive`` scheme.  Per-query results match :meth:`gradient`
+        run separately, up to f32 summation order.
+        """
+        Z = theta_B @ self.C.T                               # (B, N)
+        erased_B = self.worker_mask_to_erasure(straggler_mask_B)
+        c_hat, unresolved = self.engine.recover_batch(Z, erased_B)
         return self.finish_gradient(c_hat, unresolved)
 
     def step(self, theta: torch.Tensor, straggler_mask: torch.Tensor):

@@ -9,8 +9,9 @@ stage    what it does
 ======== ====================================================================
 encode   ``symbols = G @ payload`` — systematic codeword(s) of the payload.
 erase    zero the straggled coordinates (workers that did not report).
-decode   the peeling decode via :func:`repro_torch.core.decoder.peel_decode`
-         (the CUDA kernel, or the dense reference), fixed ``D`` rounds.
+decode   the peeling decode via :mod:`repro_torch.core.decoder` (the CUDA
+         kernel, or the dense reference): fixed ``D`` rounds, or early exit
+         within ``D`` rounds (``adaptive=True``).
 epilogue zero-fill the unresolved systematic coordinates (paper Scheme 2:
          both ``ĉ`` and ``b̂`` zeroed on the unresolved set keeps the
          gradient estimate an unbiased (1-q_D)-scaled gradient — Lemma 1).
@@ -18,7 +19,12 @@ epilogue zero-fill the unresolved systematic coordinates (paper Scheme 2:
 
 The payload axis ``V`` (many codewords sharing ONE erasure pattern — the
 paper's blocked Scheme 2, where one straggler erases the same coordinate of
-every block) is the decode's second axis.
+every block) and the pattern axis ``B`` (many independent erasure patterns,
+:meth:`CodedComputeEngine.decode_batch`) are orthogonal; the engine exposes
+both.  The batch axis carries per-slot adaptive state: with
+``adaptive=True`` every slot stops at its own fixpoint, under its own
+round budget, and reports its own round count.  This is the primitive of
+the coded-query server (:mod:`repro_torch.serving.coded_queries`).
 """
 from __future__ import annotations
 
@@ -26,7 +32,9 @@ import dataclasses
 
 import torch
 
-from repro_torch.core.decoder import DecodeResult, peel_decode, resolve_backend
+from repro_torch.core.decoder import (DecodeResult, peel_decode,
+                                      peel_decode_adaptive, peel_decode_batch,
+                                      peel_decode_batch_adaptive, resolve_backend)
 from repro_torch.core.ldpc import LDPCCode
 
 __all__ = ["CodedComputeEngine", "blocked_epilogue"]
@@ -59,6 +67,7 @@ class CodedComputeEngine:
     code: LDPCCode
     decode_iters: int = 10
     backend: str = "auto"          # dense | cuda | auto
+    adaptive: bool = False
 
     def __post_init__(self) -> None:
         resolve_backend(self.backend)   # fail fast on bad names
@@ -71,23 +80,60 @@ class CodedComputeEngine:
 
     @staticmethod
     def erase(symbols: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        """Zero the straggled coordinates; ``mask (N,)`` broadcasts over the
-        payload axis of ``symbols (N,)`` / ``(N, V)``."""
+        """Zero the straggled coordinates.  ``mask`` broadcasts from the
+        right-aligned coordinate axis: (N,) against (N,), (N, V), or the
+        batched (B, N) against (B, N), (B, N, V)."""
         m = mask
         while m.ndim < symbols.ndim:
             m = m[..., None]
         return torch.where(m, torch.zeros_like(symbols), symbols)
 
     def decode(self, values: torch.Tensor, erased: torch.Tensor) -> DecodeResult:
-        """One erasure pattern; values (N,) or (N, V) (payload axis)."""
+        """One erasure pattern; values (N,) or (N, V) (payload axis).  With
+        ``adaptive``, ``decode_iters`` is the round budget of the early-exit
+        decode."""
+        if self.adaptive:
+            return peel_decode_adaptive(self.code, values, erased,
+                                        self.decode_iters, backend=self.backend)
         return peel_decode(self.code, values, erased, self.decode_iters,
                            backend=self.backend)
 
+    def decode_batch(self, values: torch.Tensor, erased: torch.Tensor, *,
+                     adaptive: bool | None = None,
+                     budgets=None) -> DecodeResult:
+        """B independent erasure patterns in ONE launch; values (B, N) or
+        (B, N, V), erased (B, N).  Each slot decodes as :meth:`decode`
+        would decode it alone.
+
+        ``adaptive`` overrides the engine's policy for this call (``None``
+        = engine default).  Adaptive batches run the per-slot early-exit
+        decode: each slot stops at its own fixpoint within
+        ``decode_iters`` rounds, or within its entry of ``budgets (B,)``,
+        and ``rounds_used`` is the per-slot ``(B,)`` tensor.  ``budgets``
+        is only meaningful for adaptive decodes."""
+        use_adaptive = self.adaptive if adaptive is None else adaptive
+        if use_adaptive:
+            return peel_decode_batch_adaptive(
+                self.code, values, erased, self.decode_iters,
+                backend=self.backend, budgets=budgets)
+        if budgets is not None:
+            raise ValueError(
+                "budgets= requires the adaptive batched decode (engine "
+                "adaptive=True or decode_batch(adaptive=True)); the fixed-D "
+                "path would silently ignore the per-slot round budgets")
+        return peel_decode_batch(self.code, values, erased, self.decode_iters,
+                                 backend=self.backend)
+
     def systematic(self, dec: DecodeResult) -> tuple[torch.Tensor, torch.Tensor]:
-        """Epilogue: zero-filled systematic part + its unresolved mask."""
+        """Epilogue: zero-filled systematic part + its unresolved mask.
+
+        Takes single (values (N,)/(N, V)) and batched (values (B, N)/
+        (B, N, V)) decode results: the systematic part is the first K
+        coordinates of the coordinate axis."""
         K = self.code.K
-        vals = dec.values[:K]
-        unresolved = dec.erased[:K]
+        batched = dec.erased.ndim == 2
+        vals = dec.values[:, :K] if batched else dec.values[:K]
+        unresolved = dec.erased[:, :K] if batched else dec.erased[:K]
         m = unresolved
         while m.ndim < vals.ndim:
             m = m[..., None]
@@ -98,4 +144,14 @@ class CodedComputeEngine:
         """erase → decode → epilogue for one pattern: returns the
         zero-filled systematic (K, ...) values and the (K,) unresolved mask."""
         dec = self.decode(self.erase(symbols, mask), mask)
+        return self.systematic(dec)
+
+    def recover_batch(self, symbols: torch.Tensor, mask: torch.Tensor, *,
+                      adaptive: bool | None = None, budgets=None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+        """erase → decode → epilogue for B patterns in one launch: returns
+        (B, K, ...) zero-filled systematic values and (B, K) unresolved.
+        ``adaptive`` / ``budgets`` pass through to :meth:`decode_batch`."""
+        dec = self.decode_batch(self.erase(symbols, mask), mask,
+                                adaptive=adaptive, budgets=budgets)
         return self.systematic(dec)

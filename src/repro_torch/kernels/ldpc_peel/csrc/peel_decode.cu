@@ -1,42 +1,61 @@
-// Fixed-D flooding peeling decode of one erasure pattern, in one launch.
+// Flooding peeling decode of B erasure patterns, in one launch: the
+// fixed-D contract and the early-exit (adaptive) contract.
 //
 // Replaces the JAX package's Pallas TPU kernels
-//   src/repro/kernels/ldpc_peel/kernel.py:353 decode_fused        (H resident in VMEM)
-//   src/repro/kernels/ldpc_peel/kernel.py:600 decode_fused_tiled  (H streamed from HBM)
-// Both compute the same function; the tiled one exists only because VMEM
-// cannot hold a dense H past N ~ 2048.  This kernel reads the code's sparse
-// neighbour table (check_idx / check_coeff, p x r) from device memory, so one
-// kernel serves every N whose per-block state fits in shared memory.
+//   src/repro/kernels/ldpc_peel/kernel.py:353 decode_fused
+//   src/repro/kernels/ldpc_peel/kernel.py:402 decode_fused_batch
+//   src/repro/kernels/ldpc_peel/kernel.py:459 decode_fused_adaptive
+//   src/repro/kernels/ldpc_peel/kernel.py:514 decode_fused_batch_adaptive
+// and their H-streaming twins decode_fused{,_batch,_adaptive,
+// _batch_adaptive}_tiled (kernel.py:600, 651, 705, 761).  Each tiled kernel
+// computes the same function as its resident one; it exists only because
+// VMEM cannot hold a dense H past N ~ 2048.  This kernel reads the code's
+// sparse neighbour table (check_idx / check_coeff, p x r) from device
+// memory, so one kernel serves every N whose per-block state fits in
+// shared memory.  The single-pattern contracts are the B = 1 case.
 //
-// What it computes.  Exactly `iters` rounds.  In each round every check row
-// with exactly one erased neighbour j proposes c_j = -(sum_known H c) / H_ij
-// (a zero coefficient is guarded to 1), against the state at the START of the
-// round; when several checks resolve one coordinate the LOWEST check row wins
+// What it computes.  In each round every check row with exactly one erased
+// neighbour j proposes c_j = -(sum_known H c) / H_ij (a zero coefficient
+// is guarded to 1), against the state at the START of the round; when
+// several checks resolve one coordinate the LOWEST check row wins
 // (kernel.py:235-237).  Erased entries are never read.  Counts of erased
 // neighbours are integers: solvability takes no tolerance.
+//   fixed     exactly `iters` rounds for every slot.
+//   adaptive  slot b stops before round d when d >= budget[b] (or `iters`
+//             where no budgets are given), when round d-1 resolved nothing,
+//             or when nothing is erased.  rounds[b] counts the rounds run,
+//             the last no-progress probe round included (kernel.py:322-338
+//             _adaptive_loop).  Budget 0, or nothing erased, returns the
+//             slot untouched with 0 rounds.
 //
-// Design.  A block owns up to kCols payload columns and recomputes the whole
-// erasure trajectory itself (it depends only on H and the initial mask), the
-// way the TPU grid over payload tiles does; blocks share nothing.  Per block,
-// shared memory holds the erasure flags (N bytes) and the winning check row
-// per coordinate (N ints): 5N bytes, so N up to ~46k.  Values live in device
-// memory (the output buffer) and the proposals in a (p, V) scratch buffer.
-// Each round is four phases split by block barriers:
+// Design.  The grid is (ceil(V / kCols), B): a block owns up to kCols
+// payload columns of one slot and recomputes that slot's whole erasure
+// trajectory itself (it depends only on H, the slot's mask and budget), the
+// way the TPU grid over payload tiles does; blocks share nothing.  All
+// slots read the one neighbour table.  Per block, shared memory holds the
+// erasure flags (N bytes) and the winning check row per coordinate (N
+// ints): 5N bytes, so N up to ~46k.  Values live in device memory (the
+// output buffer) and the proposals in a (B, p, V) scratch buffer.  Each
+// round is four phases split by block barriers:
 //   A. every check counts its erased neighbours; a solvable check bids for
 //      its coordinate with atomicMin(row) — the explicit "lo" tie-break;
 //   B. each winning check computes its proposal into scratch, reading only
 //      round-start values (nothing is written to the values in A or B);
 //   C. each resolved coordinate copies its winner's proposal into the values;
 //   D. the resolved coordinates leave the erased set and the bids reset.
+//      The adaptive contract ends D with __syncthreads_or over "I resolved
+//      a coordinate" and "a coordinate of mine is still erased": both stop
+//      tests are block-wide, so every thread of a block leaves the loop
+//      after the same round.  Budgets are read from device memory: varying
+//      them rebuilds nothing and syncs nothing.
 //
-// Bound on an H100 SXM (3.35 TB/s).  At the full-width shape (N = 2048,
-// p = 1024, r = 6, V = 32, D = 8) the decode moves about 0.58 MB once (tables,
-// values in and out, masks), 0.17 us; reading the tables and the values
-// every round is 4.6 MB, 1.4 us.  Both are far below the latency of D
-// rounds of dependent global loads and barriers plus the launch itself, so
-// the kernel is latency-bound.  The design keeps every round inside one
-// launch (no per-round relaunch) and leaves making the rounds shorter to
-// later work.
+// Bound on an H100 SXM (3.35 TB/s).  At the blocked step's shape (N = 2048,
+// p = 1024, r = 6, V = 32, D = 8, B = 1) the decode moves about 0.58 MB
+// once, 0.17 us; at the serving shape (B = 64, V = 1) about 1.36 MB,
+// 0.41 us.  Both are far below the latency of the rounds of dependent
+// global loads and barriers plus the launch itself, so the kernel is
+// latency-bound.  The design keeps every round inside one launch (no
+// per-round relaunch) and leaves making the rounds shorter to later work.
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -51,32 +70,49 @@ __device__ __forceinline__ size_t at(int row, int col, int width) {
   return static_cast<size_t>(row) * static_cast<size_t>(width) + col;
 }
 
+template <bool kAdaptive>
 __global__ void __launch_bounds__(kThreads)
 peel_decode_kernel(const int* __restrict__ check_idx,
                    const float* __restrict__ check_coeff, int p, int r,
                    const float* __restrict__ values_in,
                    const unsigned char* __restrict__ erased_in,
-                   float* values_out, unsigned char* erased_out,
-                   float* scratch, int N, int V, int iters) {
+                   const int* __restrict__ budgets, float* values_out,
+                   unsigned char* erased_out, int* rounds_out, float* scratch,
+                   int N, int V, int iters) {
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* e = smem;                                        // N flags
   int* win = reinterpret_cast<int*>(smem + ((N + 15) & ~15));     // N rows
 
   const int tid = threadIdx.x;
+  const int b = blockIdx.y;
   const int c0 = blockIdx.x * kCols;
   const int nc = min(kCols, V - c0);
+  values_in += static_cast<size_t>(b) * N * V;
+  values_out += static_cast<size_t>(b) * N * V;
+  erased_in += static_cast<size_t>(b) * N;
+  scratch += static_cast<size_t>(b) * p * V;
+  const int budget = (kAdaptive && budgets != nullptr) ? budgets[b] : iters;
 
+  int mine_erased = 0;
   for (int j = tid; j < N; j += blockDim.x) {
     e[j] = erased_in[j] ? 1 : 0;
+    mine_erased |= e[j];
     win[j] = INT_MAX;
   }
   for (int it = tid; it < N * nc; it += blockDim.x) {
     const int j = it / nc, c = c0 + it % nc;
     values_out[at(j, c, V)] = values_in[at(j, c, V)];
   }
-  __syncthreads();
+  // Adaptive: "something is erased" for the whole slot; the barrier also
+  // publishes the flags and bids.
+  int any_erased = kAdaptive ? __syncthreads_or(mine_erased) : 1;
+  if (!kAdaptive) __syncthreads();
+  int progressed = 1;
 
-  for (int t = 0; t < iters; ++t) {
+  int t = 0;
+  for (; t < budget; ++t) {
+    if (kAdaptive && !(progressed && any_erased)) break;
+
     // A. count erased neighbours; solvable checks bid for their coordinate.
     for (int i = tid; i < p; i += blockDim.x) {
       const int* nbr = check_idx + at(i, 0, r);
@@ -126,18 +162,48 @@ peel_decode_kernel(const int* __restrict__ check_idx,
     __syncthreads();
 
     // D. resolved coordinates leave the erased set; bids reset.
+    int mine_resolved = 0;
+    mine_erased = 0;
     for (int j = tid; j < N; j += blockDim.x) {
       if (win[j] != INT_MAX) {
         e[j] = 0;
         win[j] = INT_MAX;
+        mine_resolved = 1;
       }
+      mine_erased |= e[j];
     }
-    __syncthreads();
+    if (kAdaptive) {
+      progressed = __syncthreads_or(mine_resolved);
+      any_erased = __syncthreads_or(mine_erased);
+    } else {
+      __syncthreads();
+    }
   }
 
   if (blockIdx.x == 0) {
-    for (int j = tid; j < N; j += blockDim.x) erased_out[j] = e[j];
+    unsigned char* out = erased_out + static_cast<size_t>(b) * N;
+    for (int j = tid; j < N; j += blockDim.x) out[j] = e[j];
+    if (kAdaptive && tid == 0) rounds_out[b] = t;
   }
+}
+
+template <bool kAdaptive>
+int launch(const int* check_idx, const float* check_coeff, int p, int r,
+           const float* values_in, const unsigned char* erased_in,
+           const int* budgets, float* values_out, unsigned char* erased_out,
+           int* rounds_out, float* scratch, int B, int N, int V, int iters,
+           size_t smem, cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        peel_decode_kernel<kAdaptive>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid((V + kCols - 1) / kCols, B);
+  peel_decode_kernel<kAdaptive><<<grid, kThreads, smem, stream>>>(
+      check_idx, check_coeff, p, r, values_in, erased_in, budgets, values_out,
+      erased_out, rounds_out, scratch, N, V, iters);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -149,24 +215,27 @@ size_t peel_decode_smem_bytes(int N) {
   return static_cast<size_t>((N + 15) & ~15) + 4 * static_cast<size_t>(N);
 }
 
-// Launches the decode on `stream`; returns cudaGetLastError() (0 = launched).
+// Launches the decode of B patterns on `stream`: values (B, N, V) f32,
+// erased (B, N) bytes, scratch (B, p, V) f32.  adaptive = 0: exactly
+// `iters` rounds (budgets and rounds_out unused).  adaptive = 1: early exit
+// under budgets (B,) int32, or `iters` for every slot where budgets is
+// null; rounds_out (B,) int32.  Returns cudaGetLastError() (0 = launched).
 int peel_decode_launch(const int* check_idx, const float* check_coeff, int p,
                        int r, const float* values_in,
-                       const unsigned char* erased_in, float* values_out,
-                       unsigned char* erased_out, float* scratch, int N, int V,
-                       int iters, void* stream) {
+                       const unsigned char* erased_in, const int* budgets,
+                       float* values_out, unsigned char* erased_out,
+                       int* rounds_out, float* scratch, int B, int N, int V,
+                       int iters, int adaptive, void* stream) {
   const size_t smem = peel_decode_smem_bytes(N);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        peel_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (adaptive) {
+    return launch<true>(check_idx, check_coeff, p, r, values_in, erased_in,
+                        budgets, values_out, erased_out, rounds_out, scratch,
+                        B, N, V, iters, smem, s);
   }
-  const dim3 grid((V + kCols - 1) / kCols);
-  peel_decode_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      check_idx, check_coeff, p, r, values_in, erased_in, values_out,
-      erased_out, scratch, N, V, iters);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(check_idx, check_coeff, p, r, values_in, erased_in,
+                       nullptr, values_out, erased_out, nullptr, scratch, B,
+                       N, V, iters, smem, s);
 }
 
 const char* peel_decode_error_string(int code) {

@@ -1,4 +1,5 @@
-"""The CUDA decode kernel against its plain PyTorch version, on the card.
+"""The CUDA decode kernel against its plain PyTorch versions, on the card:
+all four contracts (fixed D and early exit, one pattern and a batch).
 
 These tests need a CUDA card and skip without one (the decision is taken
 inside the fixture, at run time).  They import no JAX, so they run on a
@@ -19,7 +20,12 @@ import torch
 
 from repro_torch.core import decoder
 from repro_torch.core.ldpc import make_parity_only_ldpc, make_regular_ldpc
-from repro_torch.kernels.ldpc_peel import decode_fused_ref, dense_h, peel_decode_cuda
+from repro_torch.kernels.ldpc_peel import (decode_fused_adaptive_ref,
+                                           decode_fused_batch_adaptive_ref,
+                                           decode_fused_batch_ref, decode_fused_ref,
+                                           dense_h, peel_decode_adaptive_cuda,
+                                           peel_decode_batch_adaptive_cuda,
+                                           peel_decode_batch_cuda, peel_decode_cuda)
 
 
 @pytest.fixture
@@ -107,3 +113,165 @@ def test_wrapper_rejects_mixed_devices(cuda):
     with pytest.raises(ValueError, match="device|on"):
         peel_decode_cuda(tables, torch.zeros((code.N, 1)),
                          torch.zeros(code.N, dtype=torch.bool), 1)
+
+
+# ------------------------------------------ batched and early-exit contracts
+
+def _batch_case(code, B, V, f, seed, weights):
+    cases = [_case(code, V, f, 0, seed * 100 + b, weights) for b in range(B)]
+    return [np.stack(x) for x in zip(*cases)]          # values, erased, truth
+
+
+def _check_values(weights, values, erased, truth, kv, ke, pv, pe):
+    np.testing.assert_array_equal(ke, pe)
+    unresolved = ~(erased & ~pe)
+    np.testing.assert_array_equal(kv[unresolved], values[unresolved])
+    if weights == "pm1":
+        np.testing.assert_array_equal(kv, pv)
+        return
+    for b in range(values.shape[0]):
+        res = ~unresolved[b]
+        if res.any():
+            scale = np.abs(truth[b]).max()
+            err = np.abs(pv[b] - truth[b])[res].max()
+            assert np.abs(kv[b] - pv[b]).max() <= 1e-4 * scale + 4 * err
+
+
+def _np(*ts):
+    return [t.cpu().numpy() for t in ts]
+
+
+@pytest.mark.parametrize("weights", ["gaussian", "pm1"])
+@pytest.mark.parametrize("K", [20, 256])
+@pytest.mark.parametrize("B,V", [(1, 1), (6, 1), (6, 5), (33, 3)])
+@pytest.mark.parametrize("f,D", [(0.0, 4), (0.25, 1), (0.45, 8)])
+def test_batch_kernel_matches_plain(cuda, weights, K, B, V, f, D):
+    code = _code(weights, K)
+    values, erased, truth = _batch_case(code, B, V, f, 1, weights)
+    tables = decoder.code_tables(code, cuda)
+    v, e = torch.from_numpy(values).to(cuda), torch.from_numpy(erased).to(cuda)
+    kv, ke = peel_decode_batch_cuda(tables, v, e, D)
+    pv, pe = decode_fused_batch_ref(dense_h(tables.check_idx, tables.check_coeff,
+                                            code.N), v, e, D)
+    torch.cuda.synchronize()
+    _check_values(weights, values, erased, truth, *_np(kv, ke, pv, pe))
+    # each slot exactly as the single-pattern kernel decodes it alone
+    for b in range(B):
+        sv, se = peel_decode_cuda(tables, v[b], e[b], D)
+        assert torch.equal(sv, kv[b]) and torch.equal(se, ke[b])
+
+
+@pytest.mark.parametrize("weights", ["gaussian", "pm1"])
+@pytest.mark.parametrize("K", [20, 256])
+@pytest.mark.parametrize("V", [1, 5])
+@pytest.mark.parametrize("f", [0.0, 0.25, 0.45])
+@pytest.mark.parametrize("budget", [0, 2, "N"])
+def test_adaptive_kernel_matches_plain(cuda, weights, K, V, f, budget):
+    code = _code(weights, K)
+    max_iters = code.N if budget == "N" else budget
+    values, erased, truth = _batch_case(code, 1, V, f, 2, weights)
+    tables = decoder.code_tables(code, cuda)
+    v, e = torch.from_numpy(values[0]).to(cuda), torch.from_numpy(erased[0]).to(cuda)
+    kv, ke, kd = peel_decode_adaptive_cuda(tables, v, e, max_iters)
+    pv, pe, pd = decode_fused_adaptive_ref(
+        dense_h(tables.check_idx, tables.check_coeff, code.N), v, e, max_iters)
+    torch.cuda.synchronize()
+    assert kd.ndim == 0 and kd.dtype == torch.int32 and kd.device.type == "cuda"
+    assert int(kd) == int(pd)
+    _check_values(weights, values, erased, truth,
+                  *[x[None] for x in _np(kv, ke, pv, pe)])
+
+
+@pytest.mark.parametrize("weights", ["gaussian", "pm1"])
+@pytest.mark.parametrize("K", [20, 256])
+@pytest.mark.parametrize("B,V", [(1, 1), (8, 1), (8, 5), (64, 2)])
+@pytest.mark.parametrize("f", [0.0, 0.25, 0.45])
+def test_batch_adaptive_kernel_matches_plain(cuda, weights, K, B, V, f):
+    code = _code(weights, K)
+    values, erased, truth = _batch_case(code, B, V, f, 3, weights)
+    rng = np.random.default_rng([B, V, int(f * 100)])
+    budgets = rng.choice([0, 1, 2, 3, 8, code.N], size=B).astype(np.int32)
+    tables = decoder.code_tables(code, cuda)
+    v, e = torch.from_numpy(values).to(cuda), torch.from_numpy(erased).to(cuda)
+    bud = torch.from_numpy(budgets).to(cuda)
+    kv, ke, kd = peel_decode_batch_adaptive_cuda(tables, v, e, bud)
+    pv, pe, pd = decode_fused_batch_adaptive_ref(
+        dense_h(tables.check_idx, tables.check_coeff, code.N), v, e, bud)
+    torch.cuda.synchronize()
+    assert torch.equal(kd, pd)
+    _check_values(weights, values, erased, truth, *_np(kv, ke, pv, pe))
+
+
+def test_budget_zero_and_nothing_erased_pass_through(cuda):
+    code = _code("gaussian", 256)
+    values, erased, _ = _batch_case(code, 4, 3, 0.4, 4, "gaussian")
+    erased[2] = False
+    tables = decoder.code_tables(code, cuda)
+    v, e = torch.from_numpy(values).to(cuda), torch.from_numpy(erased).to(cuda)
+    bud = torch.tensor([code.N, 0, code.N, code.N], dtype=torch.int32, device=cuda)
+    kv, ke, kd = peel_decode_batch_adaptive_cuda(tables, v, e, bud)
+    torch.cuda.synchronize()
+    assert kd.tolist()[1:3] == [0, 0] and kd[0] > 0 and kd[3] > 0
+    for b in (1, 2):
+        assert torch.equal(kv[b], v[b]) and torch.equal(ke[b], e[b])
+
+
+@pytest.mark.parametrize("contract", ["fixed", "batch", "adaptive", "batch_adaptive"])
+def test_erased_entries_are_never_read(cuda, contract):
+    code = _code("gaussian", 256)
+    values, erased, _ = _batch_case(code, 4, 3, 0.4, 5, "gaussian")
+    tables = decoder.code_tables(code, cuda)
+    e = torch.from_numpy(erased).to(cuda)
+    bud = torch.full((4,), code.N, dtype=torch.int32, device=cuda)
+    outs = []
+    for fill in (0.0, float("nan"), float("inf")):
+        v = torch.from_numpy(np.where(erased[..., None], np.float32(fill),
+                                      values)).to(cuda)
+        if contract == "fixed":
+            outs.append(peel_decode_cuda(tables, v[0], e[0], 8))
+        elif contract == "batch":
+            outs.append(peel_decode_batch_cuda(tables, v, e, 8))
+        elif contract == "adaptive":
+            outs.append(peel_decode_adaptive_cuda(tables, v[0], e[0], code.N))
+        else:
+            outs.append(peel_decode_batch_adaptive_cuda(tables, v, e, bud))
+    torch.cuda.synchronize()
+    e0 = e[0] if contract in ("fixed", "adaptive") else e
+    resolved = e0 & ~outs[0][1]
+    assert bool(resolved.any())
+    for out in outs[1:]:
+        assert torch.equal(out[1], outs[0][1])
+        assert torch.equal(out[0][resolved], outs[0][0][resolved])
+        if len(out) == 3:
+            assert torch.equal(out[2], outs[0][2])
+
+
+def test_each_wrapper_counts_its_own_launches(cuda):
+    code = _code("pm1", 20)
+    values, erased, _ = _batch_case(code, 3, 2, 0.3, 6, "pm1")
+    v, e = torch.from_numpy(values).to(cuda), torch.from_numpy(erased).to(cuda)
+    wrappers = (peel_decode_cuda, peel_decode_batch_cuda, peel_decode_adaptive_cuda,
+                peel_decode_batch_adaptive_cuda)
+    before = [w.launches for w in wrappers]
+    decoder.peel_decode_batch(code, v, e, 3)
+    decoder.peel_decode_batch_adaptive(code, v, e, budgets=[1, 2, 3])
+    decoder.peel_decode_batch_adaptive(code, v, e, budgets=[1, 2, 3])
+    decoder.peel_decode_adaptive(code, v[0], e[0], 5)
+    decoder.peel_decode_batch(code, v, e, 3, backend="dense")
+    decoder.peel_decode_adaptive(code, v[0], e[0], backend="dense")
+    decoder.peel_decode_batch_adaptive(code, v.cpu(), e.cpu(), backend="cuda")
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [0, 1, 1, 2]
+
+
+def test_budgets_are_read_on_the_device(cuda):
+    # Budgets given as a device tensor go to the kernel as they are; the
+    # result equals the one with budgets given from the host.
+    code = _code("pm1", 256)
+    values, erased, _ = _batch_case(code, 4, 1, 0.45, 7, "pm1")
+    v, e = torch.from_numpy(values).to(cuda), torch.from_numpy(erased).to(cuda)
+    a = decoder.peel_decode_batch_adaptive(
+        code, v, e, budgets=torch.tensor([0, 2, 5, 9], dtype=torch.int32, device=cuda))
+    b = decoder.peel_decode_batch_adaptive(code, v, e, budgets=[0, 2, 5, 9])
+    assert a.rounds_used.device.type == "cuda"
+    assert torch.equal(a.rounds_used, b.rounds_used)
+    assert torch.equal(a.values, b.values) and torch.equal(a.erased, b.erased)

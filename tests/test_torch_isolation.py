@@ -11,12 +11,14 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
 
-# A 2-step CPU slice through the port's public entry points; prints the
-# modules of JAX or the JAX package that ended up loaded.
+# A 2-step CPU slice through the port's public entry points, and a tiny
+# coded-query server in both modes; prints the modules of JAX or the JAX
+# package that ended up loaded.
 _SLICE = """
-import json, sys, torch
-from repro_torch.core import (FixedCountStragglers, Scheme2Blocked,
+import json, sys, numpy as np, torch
+from repro_torch.core import (FixedCountStragglers, Scheme2, Scheme2Blocked,
                               make_regular_ldpc, run_pgd, second_moment)
+from repro_torch.serving import CodedQuery, CodedQueryBatcher
 from repro_torch.core.schemes import Uncoded
 from repro_torch.data import make_linear_problem
 import repro_torch.convert, repro_torch.kernels.build
@@ -29,9 +31,20 @@ res = run_pgd(scheme, torch.zeros(80), FixedCountStragglers(10), 2,
               generator=gen, theta_star=prob.theta_star)
 run_pgd(Uncoded(prob.X, prob.y, w=40, lr=prob.lr), torch.zeros(80),
         FixedCountStragglers(10), 2, generator=gen)
+small = make_linear_problem(64, 20, seed=0, device="cpu")
+served = []
+for mode, adaptive in (("continuous", True), ("lockstep", False)):
+    s2 = Scheme2.build(code, second_moment(small.X, small.y), lr=small.lr,
+                       decode_iters=6, adaptive=adaptive)
+    bat = CodedQueryBatcher(s2, n_slots=2, mode=mode, rounds_per_launch=2)
+    rng = np.random.default_rng(0)
+    for i in range(3):
+        bat.submit(CodedQuery(i, rng.standard_normal(20).astype(np.float32),
+                              rng.random(40) < 0.3))
+    served.append(len(bat.run()))
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "repro") or m.startswith(("jax.", "jaxlib.", "repro.")))
-print(json.dumps({"bad": bad, "errors": res.errors.tolist()}))
+print(json.dumps({"bad": bad, "errors": res.errors.tolist(), "served": served}))
 """
 
 
@@ -43,6 +56,7 @@ def test_slice_runs_without_jax_or_repro():
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["bad"] == []
     assert len(result["errors"]) == 2
+    assert result["served"] == [3, 3]
 
 
 def _sources():
