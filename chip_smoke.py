@@ -36,7 +36,29 @@ Phases, each printing its own lines:
    accounting must be identical between the two, every gradient within an
    anchored bound of the dense run's, and the decode kernel's launches must
    equal the batcher's.  Prints queries/s, launches, slot-rounds, the
-   kernel's ms per launch and the device's busy share.
+   kernel's ms per launch and the device's busy share;
+9. the seeded kernels against their plain versions: the four seeded decode
+   contracts on make_seeded_ldpc codes at N in {2048, 32768}, B in
+   {1, 8, 64}, V in {1, 2}, erasure fractions {0, 0.25, 0.45}, mixed
+   per-slot budgets including 0 — masks, rounds and values bit-identical to
+   the plain version and to the table kernel on the same code's table; the
+   seeded encode over row windows (from row 0, across K, past N),
+   bit-identical to its plain version;
+10. Path B, the large-N seeded decode (launch/steps.py:238-255 at the
+   dryrun's default K = 16384 under --seeded): N = 32768, V = 2, D = 8,
+   erasure fractions {0.25, 0.45}, CodedComputeEngine(backend="auto") on
+   make_seeded_ldpc and on the structure-only SeededLDPC, all four
+   contracts, bit-identical to each other and to the plain versions; then
+   the structure-only decode at N = 262144, V = 1, D = 8 (H would be
+   128 GiB), exactly against its plain version;
+11. Path A, Scheme 2 with the on-the-fly seeded LDGM encode
+   (Scheme2.build_seeded(encode_fused=True)): k = K = 16384,
+   make_seeded_ldgm(16384, 8192, row_weight=8) so N = 24576 workers, M
+   (1 GiB) built on the card from m = 32768 samples, 2458 stragglers (10%)
+   a step, D = 8, 20 steps of run_pgd.  The encode and decode kernels
+   launch once a step each, and the run with encode_fused=False (the table
+   gather) on the same masks is bit-identical.  Prints ms per step, the
+   device's busy share and the encode against torch.sparse.mm.
 
 Then, as the last three lines: the card's name and power limit, one JSON
 object with each kernel's launches, error and times, and
@@ -141,6 +163,22 @@ def decode_bytes(p: int, r: int, B: int, N: int, V: int, extra: int = 0) -> int:
     return p * r * 8 + 2 * B * N * V * 4 + 2 * B * N + extra
 
 
+def same_bits(a, b) -> bool:
+    """Equal bit for bit: float tensors compared as their bit patterns
+    (signed zeros and NaNs included), other tensors and numbers by value."""
+    if not isinstance(a, torch.Tensor) or not isinstance(b, torch.Tensor):
+        return type(a) is type(b) and a == b
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def all_same(xs, ys) -> bool:
+    return len(xs) == len(ys) and all(same_bits(x, y) for x, y in zip(xs, ys))
+
+
 def values_agree(weights: str, v, e, truth, kv, ke, pv, pe, dense64) -> float:
     """Kernel ``(kv, ke)`` against plain ``(pv, pe)`` on batched inputs
     ``v (B, N, V)`` / ``e (B, N)``: masks exact, unresolved entries
@@ -180,36 +218,50 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.core import (FixedCountStragglers, Scheme2, Scheme2Blocked,
-                                  make_parity_only_ldpc, make_regular_ldpc,
-                                  run_pgd, second_moment)
-    from repro_torch.core import decoder
+    from repro_torch.core import (CodedComputeEngine, FixedCountStragglers, Scheme2,
+                                  Scheme2Blocked, make_parity_only_ldpc,
+                                  make_regular_ldpc, run_pgd, second_moment)
+    from repro_torch.core import decoder, encoding
+    from repro_torch.core.ldpc import SeededLDPC, make_seeded_ldgm, make_seeded_ldpc
     from repro_torch.core.schemes import Uncoded
     from repro_torch.data import make_linear_problem
     from repro_torch.kernels import build
     from repro_torch.kernels.ldpc_peel import (decode_fused_adaptive_ref,
                                                decode_fused_batch_adaptive_ref,
                                                decode_fused_batch_ref, decode_fused_ref,
-                                               dense_h, peel_decode_adaptive_cuda,
+                                               decode_seeded_adaptive_ref,
+                                               decode_seeded_batch_adaptive_ref,
+                                               decode_seeded_batch_ref, decode_seeded_ref,
+                                               dense_h, encode_seeded_fused_cuda,
+                                               encode_seeded_ref, peel_decode_adaptive_cuda,
+                                               peel_decode_adaptive_seeded_cuda,
                                                peel_decode_batch_adaptive_cuda,
-                                               peel_decode_batch_cuda, peel_decode_cuda)
+                                               peel_decode_batch_adaptive_seeded_cuda,
+                                               peel_decode_batch_cuda,
+                                               peel_decode_batch_seeded_cuda, peel_decode_cuda,
+                                               peel_decode_seeded_cuda)
     from repro_torch.serving import CodedQuery, CodedQueryBatcher
 
     wrappers = {"decode_fused": peel_decode_cuda, "decode_fused_batch": peel_decode_batch_cuda,
                 "decode_fused_adaptive": peel_decode_adaptive_cuda,
-                "decode_fused_batch_adaptive": peel_decode_batch_adaptive_cuda}
+                "decode_fused_batch_adaptive": peel_decode_batch_adaptive_cuda,
+                "decode_seeded": peel_decode_seeded_cuda,
+                "decode_seeded_batch": peel_decode_batch_seeded_cuda,
+                "decode_seeded_adaptive": peel_decode_adaptive_seeded_cuda,
+                "decode_seeded_batch_adaptive": peel_decode_batch_adaptive_seeded_cuda,
+                "encode_seeded_fused": encode_seeded_fused_cuda}
 
     def reset_counts() -> None:
         for w in wrappers.values():
             w.launches = 0
 
-    def read_counts(what: str, only: str, want: int) -> int:
-        """The launch counts after a path's run: kernel ``only`` launched
-        ``want`` times, every other kernel not at all."""
+    def read_counts(what: str, **want: int) -> dict[str, int]:
+        """The launch counts after a path's run: each kernel named in
+        ``want`` launched that many times, every other kernel not at all."""
         counts = {n: w.launches for n, w in wrappers.items()}
-        check(counts[only] == want and all(c == 0 for n, c in counts.items() if n != only),
-              f"{what}: decode launches {counts}, want {want} of {only} and no other")
-        return counts[only]
+        check(all(c == want.get(n, 0) for n, c in counts.items()),
+              f"{what}: kernel launches {counts}, want {want} and no other")
+        return {n: counts[n] for n in want}
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -322,7 +374,7 @@ def main() -> int:
     runs = {"cuda": run_pgd(coded, theta0, None, steps4, masks=masks,
                             theta_star=prob.theta_star)}
     torch.cuda.synchronize()
-    read_counts("paper setting", "decode_fused", steps4)
+    read_counts("paper setting", decode_fused=steps4)
     print(f"[paper] decode launches {peel_decode_cuda.launches} for {steps4} steps")
     runs["dense"] = run_pgd(dense, theta0, None, steps4, masks=masks,
                             theta_star=prob.theta_star)
@@ -408,7 +460,7 @@ def main() -> int:
     reset_counts()                             # the main path's run
     res = run_pgd(scheme, theta0, None, steps, masks=masks, theta_star=theta_star)
     torch.cuda.synchronize()
-    launches = read_counts("full width", "decode_fused", steps)
+    launches = read_counts("full width", decode_fused=steps)["decode_fused"]
 
     ref = run_pgd(dataclasses.replace(scheme, decode_backend="dense"), theta0,
                   None, steps, masks=masks, theta_star=theta_star)
@@ -562,7 +614,8 @@ def main() -> int:
     res7 = run_pgd(adaptive, theta0, None, steps7, masks=masks7,
                    theta_star=prob7.theta_star)
     torch.cuda.synchronize()
-    launches7 = read_counts("adaptive step", "decode_fused_adaptive", steps7)
+    launches7 = read_counts("adaptive step", decode_fused_adaptive=steps7)[
+        "decode_fused_adaptive"]
     ref7 = run_pgd(dataclasses.replace(adaptive, decode_backend="dense"), theta0, None,
                    steps7, masks=masks7, theta_star=prob7.theta_star)
     check(torch.equal(res7.unresolved, ref7.unresolved),
@@ -701,7 +754,7 @@ def main() -> int:
         serve(scheme8, mode)                   # warm-up
         reset_counts()                         # this path's run
         bat, done, secs = serve(scheme8, mode)
-        n_launch = read_counts(f"serving {mode}", kname, bat.launches)
+        n_launch = read_counts(f"serving {mode}", **{kname: bat.launches})[kname]
         _, ref_done, ref_secs = serve(dense8, mode)
         worst_ratio = 0.0
         for q, w in zip(done, ref_done):
@@ -782,6 +835,248 @@ def main() -> int:
               f"{times[name][2]:.6f} ms ({once} B once) or "
               f"{reread / HBM_BYTES_PER_S * 1e3:.6f} ms ({reread} B, tables and values "
               f"every round); max |kernel - plain| {err:.3e}")
+    # ------------------------------------------- 9. seeded kernels vs plain
+    t0 = time.perf_counter()
+    seeded_codes = {N: make_seeded_ldpc(N // 2, seed=0) for N in (2048, 32768)}
+    t_ldpc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    K11, p11 = 16384, 8192
+    ldgm = make_seeded_ldgm(K11, p11, row_weight=8, seed=0)
+    print(f"[seeded] built make_seeded_ldpc at N in {tuple(seeded_codes)} in {t_ldpc:.1f} s, "
+          f"make_seeded_ldgm({K11}, {p11}, row_weight=8) (N = {ldgm.N}) in "
+          f"{time.perf_counter() - t0:.1f} s (host numpy, H and G materialized)")
+    t0 = time.perf_counter()
+    gen9 = torch.Generator(device=dev).manual_seed(args.seed + 9)
+    n9 = {"decode_seeded": 0, "decode_seeded_batch": 0, "decode_seeded_adaptive": 0,
+          "decode_seeded_batch_adaptive": 0}
+    for N, code in seeded_codes.items():
+        st = decoder.seeded_spec(code)
+        tables = decoder.code_tables(code, dev)
+        for B in (1, 8, 64):
+            for V in (1, 2):
+                for fi, f in enumerate((0.0, 0.25, 0.45)):
+                    e = torch.rand((B, N), generator=gen9, device=dev) < f
+                    v = torch.randn((B, N, V), generator=gen9, device=dev)
+                    v = torch.where(e[..., None], 1e3 * v, v).contiguous()
+                    if B == 1:
+                        budgets = torch.tensor([(0, 8, N)[fi]], dtype=torch.int32,
+                                               device=dev)
+                    else:   # mixed per-slot budgets, slot 0 inert
+                        pick = torch.randint(0, 5, (B,), generator=gen9, device=dev)
+                        budgets = torch.tensor([0, 1, 3, 8, N], dtype=torch.int32,
+                                               device=dev)[pick]
+                        budgets[0] = 0
+                    cases = {
+                        "decode_seeded_batch": (
+                            lambda: peel_decode_batch_seeded_cuda(st, v, e, 8),
+                            lambda: decode_seeded_batch_ref(st, v, e, 8),
+                            lambda: peel_decode_batch_cuda(tables, v, e, 8)),
+                        "decode_seeded_batch_adaptive": (
+                            lambda: peel_decode_batch_adaptive_seeded_cuda(st, v, e, budgets),
+                            lambda: decode_seeded_batch_adaptive_ref(st, v, e, budgets),
+                            lambda: peel_decode_batch_adaptive_cuda(tables, v, e, budgets)),
+                    }
+                    if B == 1:
+                        mi = int(budgets[0])
+                        cases["decode_seeded"] = (
+                            lambda: peel_decode_seeded_cuda(st, v[0], e[0], 8),
+                            lambda: decode_seeded_ref(st, v[0], e[0], 8),
+                            lambda: peel_decode_cuda(tables, v[0], e[0], 8))
+                        cases["decode_seeded_adaptive"] = (
+                            lambda: peel_decode_adaptive_seeded_cuda(st, v[0], e[0], mi),
+                            lambda: decode_seeded_adaptive_ref(st, v[0], e[0], mi),
+                            lambda: peel_decode_adaptive_cuda(tables, v[0], e[0], mi))
+                    for name, (kern, plain, table) in cases.items():
+                        kout, pout, tout = kern(), plain(), table()
+                        torch.cuda.synchronize()
+                        check(all_same(kout, pout), f"{name} N={N} B={B} V={V} f={f}: "
+                              f"kernel and plain version differ")
+                        check(all_same(kout, tout), f"{name} N={N} B={B} V={V} f={f}: "
+                              f"seeded and table kernels differ")
+                        n9[name] += 1
+    print(f"[seeded] decode contracts on make_seeded_ldpc codes at N in {tuple(seeded_codes)}, "
+          f"B in (1, 8, 64), V in (1, 2), f in (0, 0.25, 0.45), mixed budgets with 0: "
+          + ", ".join(f"{n} {c} cases" for n, c in n9.items())
+          + f"; masks, rounds and values bit-identical to the plain version and to "
+          f"the table kernel on the same code ({time.perf_counter() - t0:.1f} s)")
+    st11 = encoding.generator_structure_of(ldgm)
+    n_enc = 0
+    for V in (1, 2):
+        y = torch.randn((K11, V), generator=gen9, device=dev)
+        y[0, 0] = -0.0
+        for row0, n_out in ((0, ldgm.N), (K11 - K11 // 4, K11 // 2), (ldgm.N - 300, 1000)):
+            got = encode_seeded_fused_cuda(st11, y, row0, n_out)
+            want = encode_seeded_ref(st11, y, row0, n_out)
+            torch.cuda.synchronize()
+            check(same_bits(got, want), f"encode V={V} rows [{row0}, {row0 + n_out}): "
+                  f"kernel and plain version differ")
+            n_enc += 1
+    print(f"[seeded] encode_seeded_fused over row windows [0, N), [3K/4, 5K/4), "
+          f"[N - 300, N + 700), V in (1, 2): {n_enc} cases bit-identical to the plain "
+          f"version")
+
+    # ---------------------------------------- 10. Path B: large-N seeded decode
+    N10, V10, D10, B10 = 32768, 2, 8, 8
+    code_m = seeded_codes[N10]
+    code_s = SeededLDPC(N=N10, K=N10 // 2, l=4, r=8, seed=0)
+    big = SeededLDPC(N=262144, K=131072, l=4, r=8, seed=0)
+    gen10 = torch.Generator(device=dev).manual_seed(args.seed + 10)
+    inputs10 = {}
+    for f in (0.25, 0.45):
+        e = torch.rand((B10, N10), generator=gen10, device=dev) < f
+        v = torch.where(e[..., None], 0.0, torch.randn((B10, N10, V10), generator=gen10,
+                                                       device=dev))
+        budgets = torch.tensor([0, 1, 3, 8, 8, 3, 1, 8], dtype=torch.int32, device=dev)
+        inputs10[f] = (v, e, budgets)
+    eb = torch.rand(big.N, generator=gen10, device=dev) < 0.25
+    vb = torch.where(eb[:, None], 0.0, torch.randn((big.N, 1), generator=gen10, device=dev))
+
+    def path_b(code):
+        fixed = CodedComputeEngine(code, decode_iters=D10)
+        early = CodedComputeEngine(code, decode_iters=D10, adaptive=True)
+        out = {}
+        for f, (v, e, budgets) in inputs10.items():
+            out[f] = (fixed.decode(v[0], e[0]), fixed.decode_batch(v, e),
+                      early.decode(v[0], e[0]), early.decode_batch(v, e, budgets=budgets))
+        return out
+
+    reset_counts()                             # this path's run
+    t0 = time.perf_counter()
+    runs10 = {"make_seeded_ldpc": path_b(code_m), "SeededLDPC": path_b(code_s)}
+    big_out = decoder.peel_decode(big, vb, eb, D10)
+    torch.cuda.synchronize()
+    secs10 = time.perf_counter() - t0
+    launches10 = read_counts("Path B", decode_seeded=5, decode_seeded_batch=4,
+                             decode_seeded_adaptive=4, decode_seeded_batch_adaptive=4)
+    st10 = decoder.seeded_spec(code_s)
+    err10 = 0.0
+    for f, (v, e, budgets) in inputs10.items():
+        plain = (decode_seeded_ref(st10, v[0], e[0], D10),
+                 decode_seeded_batch_ref(st10, v, e, D10),
+                 decode_seeded_adaptive_ref(st10, v[0], e[0], D10),
+                 decode_seeded_batch_adaptive_ref(st10, v, e, budgets))
+        for a, b, c in zip(runs10["make_seeded_ldpc"][f], runs10["SeededLDPC"][f], plain):
+            check(all_same(a, b), f"Path B f={f}: make_seeded_ldpc and SeededLDPC differ")
+            check(all_same(tuple(a)[:2], c[:2]) and (len(c) == 2 or same_bits(a[2], c[2])),
+                  f"Path B f={f}: kernel and plain version differ")
+            err10 = max(err10, float((a[0] - c[0]).abs().max()))
+        unres = [int(x.erased.sum()) for x in runs10["SeededLDPC"][f]]
+        print(f"[pathB] N={N10} V={V10} D={D10} f={f}: engine decode, decode_batch (B={B10}), "
+              f"adaptive decode and decode_batch (budgets {budgets.tolist()}) identical on "
+              f"make_seeded_ldpc and SeededLDPC and to the plain versions; unresolved "
+              f"{unres}")
+    big_plain = decode_seeded_ref(decoder.seeded_spec(big), vb, eb, D10)
+    torch.cuda.synchronize()
+    check(all_same(tuple(big_out)[:2], big_plain), "N=262144: kernel and plain differ")
+    print(f"[pathB] structure-only SeededLDPC N={big.N} V=1 D={D10} f=0.25: "
+          f"{int(eb.sum())} erased -> {int(big_out.erased.sum())} unresolved, bit-identical "
+          f"to the plain version; the whole path ran in {secs10:.2f} s (host clock); "
+          f"launches {launches10}")
+    # The four kernels at Path B's shapes (f = 0.25), and at N = 262144.
+    v, e, budgets = inputs10[0.25]
+    v0, e0 = v[0].contiguous(), e[0].contiguous()
+    seeded_times = {}
+    for name, kern, plain, B, extra in (
+            ("decode_seeded", lambda: peel_decode_seeded_cuda(st10, v0, e0, D10),
+             lambda: decode_seeded_ref(st10, v0, e0, D10), 1, 0),
+            ("decode_seeded_batch", lambda: peel_decode_batch_seeded_cuda(st10, v, e, D10),
+             lambda: decode_seeded_batch_ref(st10, v, e, D10), B10, 0),
+            ("decode_seeded_adaptive",
+             lambda: peel_decode_adaptive_seeded_cuda(st10, v0, e0, D10),
+             lambda: decode_seeded_adaptive_ref(st10, v0, e0, D10), 1, 8),
+            ("decode_seeded_batch_adaptive",
+             lambda: peel_decode_batch_adaptive_seeded_cuda(st10, v, e, budgets),
+             lambda: decode_seeded_batch_adaptive_ref(st10, v, e, budgets), B10, 8 * B10)):
+        k_ms, p_ms = cuda_ms(kern, 50), cuda_ms(plain, 5)
+        once = 2 * B * N10 * V10 * 4 + 2 * B * N10 + extra
+        seeded_times[name] = (k_ms, p_ms, once / HBM_BYTES_PER_S * 1e3)
+        print(f"[pathB] {name} kernel {k_ms:.4f} ms, plain version {p_ms:.4f} ms at "
+              f"N={N10} B={B} V={V10} D={D10} f=0.25; bound "
+              f"{seeded_times[name][2]:.6f} ms ({once} B once, no table)")
+    big_ms = cuda_ms(lambda: peel_decode_seeded_cuda(decoder.seeded_spec(big), vb, eb, D10), 5)
+    big_once = 2 * big.N * 4 + 2 * big.N
+    print(f"[pathB] decode_seeded at N={big.N} V=1 D={D10} (state in device memory): "
+          f"kernel {big_ms:.4f} ms; bound {big_once / HBM_BYTES_PER_S * 1e3:.6f} ms "
+          f"({big_once} B once)")
+    del runs10, big_out, big_plain, vb, eb
+
+    # ----------------------- 11. Path A: Scheme 2 with the fused seeded encode
+    k, D11, s11, m11, steps11 = K11, 8, 2458, 32768, 20
+    t0 = time.perf_counter()
+    gen11 = torch.Generator(device=dev).manual_seed(args.seed + 11)
+    X = torch.randn(m11, k, generator=gen11, device=dev) / math.sqrt(m11)
+    theta_star = torch.randn(k, generator=gen11, device=dev)
+    mom = second_moment(X, X @ theta_star)
+    del X
+    v = torch.randn(k, generator=gen11, device=dev)
+    for _ in range(100):                      # power iteration for λ_max(M)
+        v = mom.M @ v
+        v /= torch.linalg.vector_norm(v)
+    lr = 0.9 / float(v @ (mom.M @ v))
+    fused = Scheme2.build_seeded(ldgm, mom, lr=lr, decode_iters=D11, encode_fused=True)
+    table = dataclasses.replace(fused, encode_fused=False)
+    masks = torch.stack([FixedCountStragglers(s11).sample(gen11, ldgm.N, dev)
+                         for _ in range(steps11)])
+    theta0 = torch.zeros(k, device=dev)
+    torch.cuda.synchronize()
+    print(f"[pathA] k=K={k} m={m11} N={ldgm.N} D={D11} stragglers={s11}: M "
+          f"({mom.M.numel() * 4 / 2**30:.2f} GiB) built on the card in "
+          f"{time.perf_counter() - t0:.1f} s, lr = {lr:.6f}")
+    reset_counts()                             # the main path's run
+    res11 = run_pgd(fused, theta0, None, steps11, masks=masks, theta_star=theta_star)
+    torch.cuda.synchronize()
+    launches11 = read_counts("Path A", encode_seeded_fused=steps11, decode_fused=steps11)
+    ref11 = run_pgd(table, theta0, None, steps11, masks=masks, theta_star=theta_star)
+    torch.cuda.synchronize()
+    check(all_same(res11, ref11), "Path A: fused-encode and table-gather runs differ")
+    errs11 = res11.errors.tolist()
+    check(all(math.isfinite(x) for x in errs11) and errs11[-1] < errs11[0],
+          f"Path A: error {errs11[0]} -> {errs11[-1]} does not fall")
+    print(f"[pathA] launches {launches11} in {steps11} steps; iterates, errors and "
+          f"unresolved bit-identical to the table-gather run; unresolved per step "
+          f"{res11.unresolved.tolist()}")
+    print(f"[pathA] ||theta - theta*|| step 1 {errs11[0]:.6f} -> step {steps11} "
+          f"{errs11[-1]:.6f}")
+    t = [0]
+
+    def step11():
+        fused.step(res11.theta, masks[t[0] % steps11])
+        t[0] += 1
+
+    step11_ms = cuda_ms(step11, 10)
+    mv_ms = cuda_ms(lambda: mom.M @ res11.theta, 20)
+    print(f"[pathA] {step11_ms:.4f} ms per step (CUDA events, 10 steps after 2 warm-up); "
+          f"reading M once bounds it at {mom.M.numel() * 4 / HBM_BYTES_PER_S * 1e3:.4f} ms; "
+          f"the product M theta alone takes {mv_ms:.4f} ms")
+    profile_steps(fused, res11.theta, masks, step11_ms)
+    # The encode at the step's shape: y = M theta, the whole codeword.
+    y11 = (mom.M @ res11.theta)[:, None].contiguous()
+    got, want = encode_seeded_fused_cuda(st11, y11), encode_seeded_ref(st11, y11, 0, ldgm.N)
+    torch.cuda.synchronize()
+    check(same_bits(got, want), "Path A encode: kernel and plain version differ")
+    enc_err = float((got - want).abs().max())
+    idx, coeff = encoding.generator_gather_tables(ldgm, dev)
+    rw = idx.shape[1]          # the generator as CSR: identity rows, then P's rows
+    crow = torch.cat([torch.arange(K11 + 1, device=dev),
+                      K11 + rw * torch.arange(1, p11 + 1, device=dev)])
+    G_csr = torch.sparse_csr_tensor(
+        crow, torch.cat([torch.arange(K11, device=dev), idx[K11:].reshape(-1).long()]),
+        torch.cat([torch.ones(K11, device=dev), coeff[K11:].reshape(-1)]),
+        (ldgm.N, K11))
+    lib_out = torch.sparse.mm(G_csr, y11)
+    check(bool(torch.allclose(lib_out, got, rtol=1e-5, atol=1e-5 * float(y11.abs().max()))),
+          "Path A encode: torch.sparse.mm disagrees beyond f32 summation order")
+    enc_ms = cuda_ms(lambda: encode_seeded_fused_cuda(st11, y11), 200)
+    enc_plain_ms = cuda_ms(lambda: encode_seeded_ref(st11, y11, 0, ldgm.N), 20)
+    enc_lib_ms = cuda_ms(lambda: torch.sparse.mm(G_csr, y11), 200)
+    enc_once = (K11 + ldgm.N) * 4
+    enc_bound_ms = enc_once / HBM_BYTES_PER_S * 1e3
+    print(f"[pathA] encode_seeded_fused kernel {enc_ms:.4f} ms, plain version "
+          f"{enc_plain_ms:.4f} ms, torch.sparse.mm on the CSR generator {enc_lib_ms:.4f} "
+          f"ms at K={K11} N={ldgm.N} V=1; bound {enc_bound_ms:.6f} ms ({enc_once} B "
+          f"once); kernel bit-identical to the plain version")
+    del mom, fused, table, res11, ref11, G_csr
+
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     source = "src/repro_torch/kernels/ldpc_peel/csrc/peel_decode.cu"
@@ -804,6 +1099,22 @@ def main() -> int:
             "replaces": tpu + line, "also_replaces": tpu + tiled, "launches": n,
             "max_abs_err": new_err[name], "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": "bytes", "library_ms": None})
+    seeded_src = "src/repro_torch/kernels/ldpc_peel/csrc/seeded_decode.cu"
+    for name, line in (("decode_seeded", "1069"), ("decode_seeded_batch", "1122"),
+                       ("decode_seeded_adaptive", "1172"),
+                       ("decode_seeded_batch_adaptive", "1223")):
+        k_ms, p_ms, b_ms = seeded_times[name]
+        kernels.append({
+            "name": f"ldpc_peel.{name}", "route": "cuda", "source": seeded_src,
+            "replaces": tpu + line, "launches": launches10[name], "max_abs_err": err10,
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": "bytes",
+            "library_ms": None})
+    kernels.append({
+        "name": "ldpc_peel.encode_seeded_fused", "route": "cuda",
+        "source": "src/repro_torch/kernels/ldpc_peel/csrc/seeded_encode.cu",
+        "replaces": tpu + "1316", "launches": launches11["encode_seeded_fused"],
+        "max_abs_err": enc_err, "ms": enc_ms, "plain_ms": enc_plain_ms,
+        "bound_ms": enc_bound_ms, "bound_by": "bytes", "library_ms": enc_lib_ms})
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.coded_step import Scheme2, Scheme2Blocked
-from repro_torch.core.ldpc import LDPCCode
+from repro_torch.core.ldpc import LDPCCode, SeededLDPC
 from repro_torch.device import resolve_device
 
 __all__ = ["code_from_arrays", "code_from", "tensor", "scheme2_blocked_from_arrays",
@@ -33,9 +33,14 @@ def code_from_arrays(H, G, N: int, K: int, l: int, r: int, kind: str = "ldpc",
                     l=int(l), r=int(r), kind=str(kind), seed=int(seed))
 
 
-def code_from(obj) -> LDPCCode:
+def code_from(obj) -> LDPCCode | SeededLDPC:
     """An :class:`LDPCCode` from any object with the attributes
-    ``H, G, N, K, l, r, kind, seed`` (such as the JAX package's code)."""
+    ``H, G, N, K, l, r, kind, seed`` (such as the JAX package's code), or a
+    :class:`SeededLDPC` from a structure-only seeded code (``N, K, l, r,
+    seed`` and no ``H``)."""
+    if not hasattr(obj, "H") and getattr(obj, "kind", None) == "ldpc-seeded":
+        return SeededLDPC(N=int(obj.N), K=int(obj.K), l=int(obj.l), r=int(obj.r),
+                          seed=int(obj.seed))
     return code_from_arrays(**{f: getattr(obj, f) for f in _CODE_FIELDS})
 
 
@@ -52,6 +57,9 @@ def scheme2_blocked_from_arrays(code: LDPCCode, C_blocks, b, lr: float,
 
 def scheme2_from_arrays(code: LDPCCode, C, b, lr: float, decode_iters: int, *,
                         device=None, **kw) -> Scheme2:
-    """A :class:`Scheme2` over the encoded moment ``C (N, k)`` and ``b``."""
+    """A :class:`Scheme2` over the encoded moment ``C (N, k)`` and ``b``;
+    ``kw`` are its other fields.  A JAX ``Scheme2.build_seeded`` scheme
+    carries ``M (k, k)`` as its ``C``: pass it with ``seeded_encode=True``
+    (and ``encode_fused``) to carry it across."""
     return Scheme2(code=code, C=tensor(C, device), b=tensor(b, device),
                    lr=float(lr), decode_iters=int(decode_iters), **kw)

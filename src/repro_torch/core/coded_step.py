@@ -30,7 +30,8 @@ import torch
 
 from repro_torch.core import density_evolution
 from repro_torch.core.encoding import (Moments, encode_moment,
-                                       encode_moment_blocks)
+                                       encode_moment_blocks, encode_seeded,
+                                       gather_encode, generator_gather_tables)
 from repro_torch.core.engine import CodedComputeEngine, blocked_epilogue
 from repro_torch.core.ldpc import LDPCCode
 from repro_torch.optim import projections
@@ -50,22 +51,48 @@ class Scheme2:
     """LDPC moment-encoded approximate-gradient PGD (paper Scheme 2)."""
 
     code: LDPCCode
-    C: torch.Tensor  # (N, k) encoded moment  = G @ M
+    C: torch.Tensor  # (N, k) encoded moment = G @ M; seeded_encode: M (k, k)
     b: torch.Tensor  # (k,)  = X^T y
     lr: float
     decode_iters: int = 10
     # early exit within decode_iters rounds (the decode's effort tracks the
     # stragglers); per-slot on gradient_batch
     adaptive: bool = False
-    decode_backend: str = "auto"  # dense | cuda | auto (decoder.py)
+    decode_backend: str = "auto"  # dense | cuda | cuda_seeded | auto (decoder.py)
     projection: Callable[[torch.Tensor], torch.Tensor] = projections.identity
     debias: bool = False
     q0_for_debias: float = 0.1
+    # Seeded on-the-fly encode (a make_seeded_ldgm code): ``C`` holds the
+    # raw (k, k) moment M, and every step computes the codeword as the
+    # generator gather over y = M θ; the (N, k) encoded matrix never exists.
+    seeded_encode: bool = False
+    # With ``encode_fused`` the gather runs in the seeded encode kernel
+    # (encoding.encode_seeded), which regenerates the rows from the seed:
+    # no gather tables either.  Bit-identical to the table gather.
+    encode_fused: bool = False
 
     @classmethod
     def build(cls, code: LDPCCode, moments: Moments, *, lr: float, **kw) -> "Scheme2":
         return cls(code=code, C=encode_moment(code, moments.M), b=moments.b,
                    lr=lr, **kw)
+
+    @classmethod
+    def build_seeded(cls, code: LDPCCode, moments: Moments, *, lr: float,
+                     **kw) -> "Scheme2":
+        """Scheme 2 over a seeded LDGM code with the on-the-fly encode:
+        stores ``M`` itself ((k, k)) in place of the ``(N, k)`` encoded
+        ``C`` and regenerates the generator rows at every step (``z =
+        gather(M θ)``); ``encode_fused=True`` runs the gather in the
+        seeded encode kernel."""
+        return cls(code=code, C=moments.M, b=moments.b, lr=lr,
+                   seeded_encode=True, **kw)
+
+    def _encode(self, y: torch.Tensor) -> torch.Tensor:
+        """Seeded codeword of ``y`` ((K,) or (K, V)): the encode kernel or
+        the table gather, bit-identical."""
+        if self.encode_fused:
+            return encode_seeded(self.code, y)
+        return gather_encode(*generator_gather_tables(self.code, y.device), y)
 
     @property
     def w(self) -> int:
@@ -103,7 +130,10 @@ class Scheme2:
 
     def gradient(self, theta: torch.Tensor, straggler_mask: torch.Tensor):
         """Return (approx gradient, |U_t|)."""
-        z = self.C @ theta  # (N,) worker inner products (codeword of C)
+        if self.seeded_encode:
+            z = self._encode(self.C @ theta)   # gather(M θ)
+        else:
+            z = self.C @ theta  # (N,) worker inner products (codeword of C)
         erased = self.worker_mask_to_erasure(straggler_mask)
         c_hat, unresolved = self.engine.recover(z, erased)
         return self.finish_gradient(c_hat, unresolved)
@@ -118,9 +148,13 @@ class Scheme2:
         peeling decodes one batched launch
         (:meth:`CodedComputeEngine.decode_batch`) — per slot early exit for
         an ``adaptive`` scheme.  Per-query results match :meth:`gradient`
-        run separately, up to f32 summation order.
+        run separately, up to f32 summation order.  A seeded scheme
+        encodes the ``(B, k) @ (k, k)`` products as one ``(K, B)`` payload.
         """
-        Z = theta_B @ self.C.T                               # (B, N)
+        if self.seeded_encode:
+            Z = self._encode((theta_B @ self.C.T).T).T       # (B, N)
+        else:
+            Z = theta_B @ self.C.T                           # (B, N)
         erased_B = self.worker_mask_to_erasure(straggler_mask_B)
         c_hat, unresolved = self.engine.recover_batch(Z, erased_B)
         return self.finish_gradient(c_hat, unresolved)

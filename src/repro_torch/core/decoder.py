@@ -24,22 +24,38 @@ entry point                     contract
 
 Backends (``backend=``):
 
-=========  ==================================================================
-backend    what runs
-=========  ==================================================================
-"dense"    the reference: dense ``H``-structured tensor ops per round (mask
-           matvec, matmul, argmax) — O(p·N·V) work.  When several checks
-           resolve one coordinate, the HIGHEST check row wins, as the JAX
-           package's dense scatter does.
-"cuda"     the hand-written flooding kernel
-           (:mod:`repro_torch.kernels.ldpc_peel`): the whole decode in one
-           launch over the code's neighbour table.  The LOWEST check row
-           wins, as in the JAX package's fused Pallas decodes.  For CPU
-           tensors the wrappers run the kernel's plain PyTorch versions.
-"auto"     "cuda".
-=========  ==================================================================
+=============  ==============================================================
+backend        what runs
+=============  ==============================================================
+"dense"        the reference: dense ``H``-structured tensor ops per round
+               (mask matvec, matmul, argmax) — O(p·N·V) work.  When several
+               checks resolve one coordinate, the HIGHEST check row wins, as
+               the JAX package's dense scatter does.
+"cuda"         the hand-written flooding kernel
+               (:mod:`repro_torch.kernels.ldpc_peel`): the whole decode in
+               one launch over the code's neighbour table.  The LOWEST check
+               row wins, as in the JAX package's fused Pallas decodes.  For
+               CPU tensors the wrappers run the kernel's plain PyTorch
+               versions.
+"cuda_seeded"  the seeded flooding kernel: the same four contracts and the
+               same "lo" tie-break with NO table — each check row is
+               regenerated from the code's seed inside the round.  Needs a
+               seeded parity-only code: :func:`~repro_torch.core.ldpc.make_seeded_ldpc`
+               (H materialized) or the structure-only
+               :class:`~repro_torch.core.ldpc.SeededLDPC`, which never builds
+               H at any size.  On a ``make_seeded_ldpc`` code it follows the
+               trajectory and computes the values of "cuda" bit for bit.
+"auto"         "cuda_seeded" for a seeded parity-only code, else "cuda".
+=============  ==============================================================
 
-Both backends follow the same erasure trajectory (solvability is an exact
+A :class:`SeededLDPC` decodes only with "cuda_seeded" (or "auto"); other
+names raise, as "cuda_seeded" does on a code without a seed.  The JAX
+package's ``seeded_mode`` knob ("dense_tile" | "gather" | "auto") picks
+between two TPU round layouts that follow the same trajectory; the port
+carries no such knob, since its one CUDA round stands for both.  TPU
+layout choices are means, not contracts.
+
+All backends follow the same erasure trajectory (solvability is an exact
 count of erased neighbours), so masks and round counts agree exactly;
 decoded values agree up to f32 summation order and the choice among checks
 that resolve one coordinate.
@@ -52,21 +68,28 @@ flagged in the returned mask; callers zero-fill them (Lemma 1).
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.ldpc import LDPCCode
+from repro_torch.core.ldpc import (LDPCCode, SeededLDPC, SeededStructure,
+                                   seeded_structure, seeded_structure_of)
 from repro_torch.kernels.ldpc_peel import (CodeTables, peel_decode_adaptive_cuda,
+                                           peel_decode_adaptive_seeded_cuda,
                                            peel_decode_batch_adaptive_cuda,
-                                           peel_decode_batch_cuda, peel_decode_cuda)
+                                           peel_decode_batch_adaptive_seeded_cuda,
+                                           peel_decode_batch_cuda,
+                                           peel_decode_batch_seeded_cuda,
+                                           peel_decode_cuda, peel_decode_seeded_cuda)
 from repro_torch.kernels.ldpc_peel.ref import adaptive_loop
 
 __all__ = ["DecodeResult", "BACKENDS", "resolve_backend", "peel_round",
            "peel_fixed_dense", "peel_decode", "peel_decode_batch",
-           "peel_decode_adaptive", "peel_decode_batch_adaptive", "code_tables"]
+           "peel_decode_adaptive", "peel_decode_batch_adaptive", "code_tables",
+           "seeded_spec"]
 
-BACKENDS = ("auto", "dense", "cuda")
+BACKENDS = ("auto", "dense", "cuda", "cuda_seeded")
 
 
 class DecodeResult(NamedTuple):
@@ -78,13 +101,46 @@ class DecodeResult(NamedTuple):
     rounds_used: int | torch.Tensor
 
 
-def resolve_backend(backend: str) -> str:
-    """Resolve the ``backend=`` knob to "dense" or "cuda" (see the module
-    docstring).  Raises on unknown names."""
+def resolve_backend(backend: str, code=None) -> str:
+    """Resolve the ``backend=`` knob to "dense", "cuda" or "cuda_seeded"
+    (see the module docstring), by the JAX package's rules for its seeded
+    backend: "auto" picks "cuda_seeded" for a seeded parity-only ``code``
+    (a :class:`SeededLDPC` or kind "ldpc-seeded") and "cuda" otherwise.
+    Raises on unknown names, on "cuda_seeded" for a code without a seed,
+    and on any other backend for a structure-only :class:`SeededLDPC`.
+    Without a ``code`` only the name is checked."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown decode backend {backend!r}; "
                          f"want one of {BACKENDS}")
-    return "cuda" if backend == "auto" else backend
+    seeded = getattr(code, "kind", None) == "ldpc-seeded"
+    if backend == "auto":
+        backend = "cuda_seeded" if seeded else "cuda"
+    if code is None:
+        return backend
+    if backend == "cuda_seeded" and not seeded:
+        kind = getattr(code, "kind", type(code).__name__)
+        raise ValueError(
+            "backend='cuda_seeded' needs a seeded parity-only code "
+            "(make_seeded_ldpc / SeededLDPC) whose H is regenerable from "
+            f"its seed; got {kind!r}")
+    if isinstance(code, SeededLDPC) and backend != "cuda_seeded":
+        raise ValueError(
+            f"backend={backend!r} needs a materialized H, but a SeededLDPC "
+            "is structure-only; use backend='cuda_seeded'/'auto' or build "
+            "the code with make_seeded_ldpc")
+    return backend
+
+
+_seeded_structure = functools.cache(seeded_structure)
+
+
+def seeded_spec(code) -> SeededStructure:
+    """The :class:`SeededStructure` the seeded kernel regenerates a seeded
+    parity-only code's H from (``make_seeded_ldpc`` or :class:`SeededLDPC`),
+    derived once per distinct code.  Raises for a code without a seed."""
+    if getattr(code, "kind", None) != "ldpc-seeded":
+        return seeded_structure_of(code)              # raises
+    return _seeded_structure(code.p, code.N, code.r, code.seed)
 
 
 def code_tables(code: LDPCCode, device) -> CodeTables:
@@ -177,32 +233,41 @@ def _batched(values: torch.Tensor) -> tuple[torch.Tensor, bool]:
     return (values[..., None] if squeeze else values), squeeze
 
 
-def _run(code: LDPCCode, backend: str, v: torch.Tensor, e: torch.Tensor,
-         cuda_fn, dense_fn, *args):
-    """Dispatch to the kernel wrapper ``cuda_fn(tables, v, e, *args)`` or the
-    dense reference ``dense_fn(H, Hb, v, e, *args)``; results come back in
-    ``v``'s dtype."""
-    if resolve_backend(backend) == "cuda":
-        out = cuda_fn(code_tables(code, v.device),
-                      v.to(torch.float32).contiguous(), e.contiguous(), *args)
-    else:
+# The wrappers of one contract: (table kernel, seeded kernel, dense reference).
+_FIXED = (peel_decode_cuda, peel_decode_seeded_cuda, peel_fixed_dense)
+_BATCH = (peel_decode_batch_cuda, peel_decode_batch_seeded_cuda, peel_fixed_dense)
+
+
+def _run(code, backend: str, v: torch.Tensor, e: torch.Tensor, fns, *args):
+    """Dispatch to the table kernel's wrapper ``cuda_fn(tables, v, e,
+    *args)``, the seeded kernel's ``seeded_fn(spec, v, e, *args)`` or the
+    dense reference ``dense_fn(H, Hb, v, e, *args)``, with ``fns = (cuda_fn,
+    seeded_fn, dense_fn)``; results come back in ``v``'s dtype."""
+    cuda_fn, seeded_fn, dense_fn = fns
+    backend = resolve_backend(backend, code)
+    if backend == "dense":
         H, Hb = _mats(code, v.dtype, v.device)
         out = dense_fn(H, Hb, v, e, *args)
+    else:
+        v32, e = v.to(torch.float32).contiguous(), e.contiguous()
+        out = (seeded_fn(seeded_spec(code), v32, e, *args)
+               if backend == "cuda_seeded"
+               else cuda_fn(code_tables(code, v.device), v32, e, *args))
     return (out[0].to(v.dtype), *out[1:])
 
 
-def peel_decode(code: LDPCCode, values: torch.Tensor, erased: torch.Tensor, iters: int, *,
+def peel_decode(code: LDPCCode | SeededLDPC, values: torch.Tensor,
+                erased: torch.Tensor, iters: int, *,
                 backend: str = "auto") -> DecodeResult:
     """Run exactly ``iters`` flooding rounds (the paper's fixed-D decode)
     on the device ``values`` lie on."""
     squeeze = values.ndim == 1
     v = values[:, None] if squeeze else values
-    v, e = _run(code, backend, v, erased.to(torch.bool), peel_decode_cuda,
-                peel_fixed_dense, int(iters))
+    v, e = _run(code, backend, v, erased.to(torch.bool), _FIXED, int(iters))
     return DecodeResult(v[:, 0] if squeeze else v, e, int(iters))
 
 
-def peel_decode_batch(code: LDPCCode, values: torch.Tensor,
+def peel_decode_batch(code: LDPCCode | SeededLDPC, values: torch.Tensor,
                       erased: torch.Tensor, iters: int, *,
                       backend: str = "auto") -> DecodeResult:
     """Decode ``B`` INDEPENDENT erasure patterns in one launch.
@@ -215,8 +280,7 @@ def peel_decode_batch(code: LDPCCode, values: torch.Tensor,
     mask (see :mod:`repro_torch.serving.coded_queries`).
     """
     v, squeeze = _batched(values)
-    v, e = _run(code, backend, v, erased.to(torch.bool),
-                peel_decode_batch_cuda, peel_fixed_dense, int(iters))
+    v, e = _run(code, backend, v, erased.to(torch.bool), _BATCH, int(iters))
     return DecodeResult(v[..., 0] if squeeze else v, e, int(iters))
 
 
@@ -231,7 +295,7 @@ def _dense_adaptive_one(H, Hb, v, e, max_iters: int):
     return v[0], e[0], d[0]
 
 
-def peel_decode_adaptive(code: LDPCCode, values: torch.Tensor,
+def peel_decode_adaptive(code: LDPCCode | SeededLDPC, values: torch.Tensor,
                          erased: torch.Tensor, max_iters: int | None = None,
                          *, backend: str = "auto") -> DecodeResult:
     """Decode until a round resolves nothing, nothing is erased, or
@@ -246,11 +310,12 @@ def peel_decode_adaptive(code: LDPCCode, values: torch.Tensor,
     squeeze = values.ndim == 1
     v = values[:, None] if squeeze else values
     v, e, d = _run(code, backend, v, erased.to(torch.bool),
-                   peel_decode_adaptive_cuda, _dense_adaptive_one, max_iters)
+                   (peel_decode_adaptive_cuda, peel_decode_adaptive_seeded_cuda,
+                    _dense_adaptive_one), max_iters)
     return DecodeResult(v[:, 0] if squeeze else v, e, d)
 
 
-def peel_decode_batch_adaptive(code: LDPCCode, values: torch.Tensor,
+def peel_decode_batch_adaptive(code: LDPCCode | SeededLDPC, values: torch.Tensor,
                                erased: torch.Tensor,
                                max_iters: int | None = None, *,
                                backend: str = "auto",
@@ -276,5 +341,6 @@ def peel_decode_batch_adaptive(code: LDPCCode, values: torch.Tensor,
         max_iters = code.N
     budgets = _budget_vector(budgets, v.shape[0], max_iters, v.device)
     v, e, d = _run(code, backend, v, erased.to(torch.bool),
-                   peel_decode_batch_adaptive_cuda, _dense_adaptive, budgets)
+                   (peel_decode_batch_adaptive_cuda,
+                    peel_decode_batch_adaptive_seeded_cuda, _dense_adaptive), budgets)
     return DecodeResult(v[..., 0] if squeeze else v, e, d)

@@ -10,8 +10,11 @@ stage    what it does
 encode   ``symbols = G @ payload`` — systematic codeword(s) of the payload.
 erase    zero the straggled coordinates (workers that did not report).
 decode   the peeling decode via :mod:`repro_torch.core.decoder` (the CUDA
-         kernel, or the dense reference): fixed ``D`` rounds, or early exit
-         within ``D`` rounds (``adaptive=True``).
+         kernel over the code's table or regenerated from its seed, or the
+         dense reference): fixed ``D`` rounds, or early exit within ``D``
+         rounds (``adaptive=True``).  The engine's ``code`` may be a
+         structure-only :class:`repro_torch.core.ldpc.SeededLDPC`: every
+         stage but ``encode`` works on it unchanged.
 epilogue zero-fill the unresolved systematic coordinates (paper Scheme 2:
          both ``ĉ`` and ``b̂`` zeroed on the unresolved set keeps the
          gradient estimate an unbiased (1-q_D)-scaled gradient — Lemma 1).
@@ -35,7 +38,7 @@ import torch
 from repro_torch.core.decoder import (DecodeResult, peel_decode,
                                       peel_decode_adaptive, peel_decode_batch,
                                       peel_decode_batch_adaptive, resolve_backend)
-from repro_torch.core.ldpc import LDPCCode
+from repro_torch.core.ldpc import LDPCCode, SeededLDPC
 
 __all__ = ["CodedComputeEngine", "blocked_epilogue"]
 
@@ -64,19 +67,24 @@ def blocked_epilogue(values: torch.Tensor, erased: torch.Tensor,
 class CodedComputeEngine:
     """One code + one decode policy, applied as composable pipeline stages."""
 
-    code: LDPCCode
+    code: LDPCCode | SeededLDPC
     decode_iters: int = 10
-    backend: str = "auto"          # dense | cuda | auto
+    backend: str = "auto"          # dense | cuda | cuda_seeded | auto
     adaptive: bool = False
 
     def __post_init__(self) -> None:
-        resolve_backend(self.backend)   # fail fast on bad names
+        # fail fast on bad names and on backends the code cannot take
+        resolve_backend(self.backend, self.code)
 
     def encode(self, payload: torch.Tensor) -> torch.Tensor:
-        """(K, ...) systematic payload → (N, ...) worker symbols (G @ m)."""
-        G = torch.as_tensor(self.code.G, dtype=payload.dtype,
-                            device=payload.device)
-        return G @ payload
+        """(K, ...) systematic payload → (N, ...) worker symbols (G @ m).
+        Raises for a code with no generator (parity-only or structure-only
+        codes)."""
+        G = getattr(self.code, "G", None)
+        if G is None or G.size == 0:
+            raise ValueError(f"a code of kind {self.code.kind!r} has no "
+                             "generator to encode with")
+        return torch.as_tensor(G, dtype=payload.dtype, device=payload.device) @ payload
 
     @staticmethod
     def erase(symbols: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,10 @@
 """Build the port's CUDA sources with ``nvcc`` and load them with ctypes.
 
 Each source under ``kernels/*/csrc/`` exposes a plain C interface and is
-compiled on its own into a shared library for ``sm_90a`` (Hopper).  A
-library is built at first use into ``build/kernels/`` at the root of the
-checkout, named by a hash of its source and flags, so an edited source is
+compiled on its own into a shared library for ``sm_90a`` (Hopper); it may
+include the headers (``*.cuh``) beside it.  A library is built at first
+use into ``build/kernels/`` at the root of the checkout, named by a hash of
+its source, those headers and the flags, so an edited source or header is
 rebuilt and an unchanged one is loaded as is.  :func:`build_all` starts
 one ``nvcc`` per source at once and waits for all of them.
 
@@ -27,6 +28,8 @@ BUILD_DIR = _PKG.parents[2] / "build" / "kernels"
 # library name -> CUDA source
 SOURCES = {
     "peel_decode": _PKG / "ldpc_peel" / "csrc" / "peel_decode.cu",
+    "seeded_decode": _PKG / "ldpc_peel" / "csrc" / "seeded_decode.cu",
+    "seeded_encode": _PKG / "ldpc_peel" / "csrc" / "seeded_encode.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -50,8 +53,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256(SOURCES[name].read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """The library's path, named by a hash of its source, the headers
+    beside it (``*.cuh``) and the flags."""
+    src = SOURCES[name]
+    parts = [src.read_bytes()] + [h.read_bytes() for h in sorted(src.parent.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -1,14 +1,28 @@
 """LDPC peeling decode on the card: the fixed-D and early-exit flooding
-decodes, for one pattern or a batch."""
-from repro_torch.kernels.ldpc_peel.ops import (CodeTables, peel_decode_adaptive_cuda,
+decodes, for one pattern or a batch, over a code's neighbour table or
+regenerated from a seeded code's seed; and the seeded-LDGM encode."""
+from repro_torch.kernels.ldpc_peel.ops import (CodeTables, encode_seeded_fused_cuda,
+                                               peel_decode_adaptive_cuda,
+                                               peel_decode_adaptive_seeded_cuda,
                                                peel_decode_batch_adaptive_cuda,
-                                               peel_decode_batch_cuda, peel_decode_cuda)
+                                               peel_decode_batch_adaptive_seeded_cuda,
+                                               peel_decode_batch_cuda,
+                                               peel_decode_batch_seeded_cuda,
+                                               peel_decode_cuda, peel_decode_seeded_cuda)
 from repro_torch.kernels.ldpc_peel.ref import (decode_fused_adaptive_ref,
                                                decode_fused_batch_adaptive_ref,
-                                               decode_fused_batch_ref,
-                                               decode_fused_ref, dense_h)
+                                               decode_fused_batch_ref, decode_fused_ref,
+                                               decode_seeded_adaptive_ref,
+                                               decode_seeded_batch_adaptive_ref,
+                                               decode_seeded_batch_ref, decode_seeded_ref,
+                                               dense_h, encode_seeded_ref)
 
 __all__ = ["CodeTables", "peel_decode_cuda", "peel_decode_batch_cuda",
            "peel_decode_adaptive_cuda", "peel_decode_batch_adaptive_cuda",
+           "peel_decode_seeded_cuda", "peel_decode_batch_seeded_cuda",
+           "peel_decode_adaptive_seeded_cuda", "peel_decode_batch_adaptive_seeded_cuda",
+           "encode_seeded_fused_cuda",
            "decode_fused_ref", "decode_fused_batch_ref", "decode_fused_adaptive_ref",
-           "decode_fused_batch_adaptive_ref", "dense_h"]
+           "decode_fused_batch_adaptive_ref", "dense_h",
+           "decode_seeded_ref", "decode_seeded_batch_ref", "decode_seeded_adaptive_ref",
+           "decode_seeded_batch_adaptive_ref", "encode_seeded_ref"]

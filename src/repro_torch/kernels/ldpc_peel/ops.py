@@ -20,6 +20,32 @@ For tensors on a CUDA device a wrapper launches it or raises; for tensors
 on the CPU it runs the plain PyTorch version (:mod:`.ref`).  There is no
 other path: a failed build or launch is an error, never a fallback.
 
+The SEEDED codes have wrappers of their own, which take the code's
+seeded structure (``repro_torch.core.ldpc.SeededStructure``) in place of a
+table:
+
+======================================== ====================================
+wrapper                                  contract (TPU kernel it replaces)
+======================================== ====================================
+:func:`peel_decode_seeded_cuda`          as :func:`peel_decode_cuda`
+                                         (``decode_seeded``)
+:func:`peel_decode_batch_seeded_cuda`    as :func:`peel_decode_batch_cuda`
+                                         (``decode_seeded_batch``)
+:func:`peel_decode_adaptive_seeded_cuda` as :func:`peel_decode_adaptive_cuda`
+                                         (``decode_seeded_adaptive``)
+:func:`peel_decode_batch_adaptive_seeded_cuda`
+                                         as :func:`peel_decode_batch_adaptive_cuda`
+                                         (``decode_seeded_batch_adaptive``)
+:func:`encode_seeded_fused_cuda`         seeded-LDGM codeword rows from
+                                         ``row0`` (``encode_seeded_fused``)
+======================================== ====================================
+
+The four decodes launch ``csrc/seeded_decode.cu``, which regenerates each
+check row from the seed and follows exactly the trajectory, and computes
+exactly the values, of ``csrc/peel_decode.cu`` over the same code's table;
+its per-block state moves from shared to device memory past N ~ 46,000, so
+it has no limit on N.  The encode launches ``csrc/seeded_encode.cu``.
+
 Each wrapper's ``.launches`` counts its own kernel launches (and nothing
 else), so a run can show that it went through the kernel.
 """
@@ -36,10 +62,19 @@ from repro_torch.kernels.ldpc_peel import ref
 
 __all__ = ["CodeTables", "peel_decode_cuda", "peel_decode_batch_cuda",
            "peel_decode_adaptive_cuda", "peel_decode_batch_adaptive_cuda",
-           "MAX_SMEM_BYTES"]
+           "peel_decode_seeded_cuda", "peel_decode_batch_seeded_cuda",
+           "peel_decode_adaptive_seeded_cuda",
+           "peel_decode_batch_adaptive_seeded_cuda", "encode_seeded_fused_cuda",
+           "MAX_SMEM_BYTES", "MAX_SEEDED_ROW_WEIGHT", "MAX_SEEDED_LAYERS"]
 
 # Dynamic shared memory a block may use on sm_90 (H100, H200).
 MAX_SMEM_BYTES = 232_448
+# Row weight and layer count the seeded kernels take (kMaxR, kMaxLayers in
+# csrc/seeded_rows.cuh).
+MAX_SEEDED_ROW_WEIGHT = 16
+MAX_SEEDED_LAYERS = 16
+# Payload columns one decode block owns (kCols in the decode kernels).
+_COLS_PER_BLOCK = 4
 
 
 class CodeTables(NamedTuple):
@@ -56,31 +91,33 @@ def _smem_bytes(N: int) -> int:
     return ((N + 15) & ~15) + 4 * N        # as peel_decode_smem_bytes()
 
 
+def _load(name: str) -> ctypes.CDLL:
+    """The library ``name`` (built first if needed), its error-string
+    function declared."""
+    lib = build.library(name)
+    getattr(lib, f"{name}_error_string").argtypes = [ctypes.c_int]
+    getattr(lib, f"{name}_error_string").restype = ctypes.c_char_p
+    return lib
+
+
+def _raise_on(rc: int, lib: ctypes.CDLL, name: str) -> None:
+    if rc != 0:
+        msg = getattr(lib, f"{name}_error_string")(rc).decode()
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} ({msg})")
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = build.library("peel_decode")
+    lib = _load("peel_decode")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.peel_decode_launch.argtypes = [ptr, ptr, i32, i32, ptr, ptr, ptr, ptr,
                                        ptr, ptr, ptr, i32, i32, i32, i32, i32,
                                        ptr]
     lib.peel_decode_launch.restype = ctypes.c_int
-    lib.peel_decode_error_string.argtypes = [ctypes.c_int]
-    lib.peel_decode_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(tables: CodeTables, values: torch.Tensor, erased: torch.Tensor,
-           iters: int, *, batched: bool,
-           budgets: torch.Tensor | None = None) -> None:
-    idx, coeff, N = tables
-    dev = values.device
-    vdim = 3 if batched else 2
-    operands = [("check_idx", idx, torch.int32, 2),
-                ("check_coeff", coeff, torch.float32, 2),
-                ("values", values, torch.float32, vdim),
-                ("erased", erased, torch.bool, vdim - 1)]
-    if budgets is not None:
-        operands.append(("budgets", budgets, torch.int32, 1))
+def _check_operands(dev: torch.device, operands) -> None:
     for name, t, dtype, ndim in operands:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, values on {dev}")
@@ -89,20 +126,43 @@ def _check(tables: CodeTables, values: torch.Tensor, erased: torch.Tensor,
                              f"{t.ndim}-D {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if idx.shape != coeff.shape:
-        raise ValueError(f"check_idx {tuple(idx.shape)} and check_coeff "
-                         f"{tuple(coeff.shape)} differ in shape")
+
+
+def _check_decode(N: int, values: torch.Tensor, erased: torch.Tensor,
+                  iters: int, *, batched: bool, budgets: torch.Tensor | None,
+                  extra=()) -> None:
+    """What every decode wrapper checks: the payload, mask and budgets of
+    a code of length ``N`` (and the ``extra`` operands) on one device."""
+    vdim = 3 if batched else 2
+    operands = [*extra, ("values", values, torch.float32, vdim),
+                ("erased", erased, torch.bool, vdim - 1)]
+    if budgets is not None:
+        operands.append(("budgets", budgets, torch.int32, 1))
+    _check_operands(values.device, operands)
     lead = tuple(values.shape[:-2])
     if values.shape[-2] != N or erased.shape != (*lead, N):
         raise ValueError(f"values {tuple(values.shape)} / erased "
                          f"{tuple(erased.shape)} do not match N={N}")
     if budgets is not None and tuple(budgets.shape) != lead:
         raise ValueError(f"budgets must be {lead}; got {tuple(budgets.shape)}")
-    if (N < 1 or values.shape[-1] < 1 or idx.shape[0] < 1 or idx.shape[1] < 1
-            or (batched and values.shape[0] < 1)):
+    if N < 1 or values.shape[-1] < 1 or (batched and values.shape[0] < 1):
         raise ValueError("empty code, batch or payload")
     if iters < 0:
         raise ValueError(f"iters must be >= 0; got {iters}")
+
+
+def _check(tables: CodeTables, values: torch.Tensor, erased: torch.Tensor,
+           iters: int, *, batched: bool,
+           budgets: torch.Tensor | None = None) -> None:
+    idx, coeff, N = tables
+    _check_decode(N, values, erased, iters, batched=batched, budgets=budgets,
+                  extra=[("check_idx", idx, torch.int32, 2),
+                         ("check_coeff", coeff, torch.float32, 2)])
+    if idx.shape != coeff.shape:
+        raise ValueError(f"check_idx {tuple(idx.shape)} and check_coeff "
+                         f"{tuple(coeff.shape)} differ in shape")
+    if idx.shape[0] < 1 or idx.shape[1] < 1:
+        raise ValueError("empty code, batch or payload")
     if _smem_bytes(N) > MAX_SMEM_BYTES:
         raise ValueError(f"N={N} needs {_smem_bytes(N)} bytes of shared "
                          f"memory per block; the kernel takes at most "
@@ -134,10 +194,7 @@ def _launch(tables: CodeTables, values: torch.Tensor, erased: torch.Tensor,
             out_v.data_ptr(), out_e.data_ptr(),
             None if rounds is None else rounds.data_ptr(), scratch.data_ptr(),
             B, N, V, iters, int(adaptive), stream)
-    if rc != 0:
-        msg = lib.peel_decode_error_string(rc).decode()
-        raise RuntimeError(f"peel_decode kernel launch failed: CUDA error "
-                           f"{rc} ({msg})")
+    _raise_on(rc, lib, "peel_decode")
     return out_v, out_e, rounds
 
 
@@ -224,7 +281,185 @@ def peel_decode_batch_adaptive_cuda(tables: CodeTables, values: torch.Tensor,
     return v, e, d
 
 
+# ------------------------------------------------------------------ seeded
+
+
+def _spec_args(st) -> tuple:
+    """The seeded structure as the kernels' launch arguments."""
+    layer_ints = ctypes.c_int * st.layers
+    return (st.rows, st.cols, st.row_weight, st.layers, st.wseed,
+            layer_ints(*st.strides), layer_ints(*st.offsets))
+
+
+def _check_spec(st) -> None:
+    if not 1 <= st.row_weight <= MAX_SEEDED_ROW_WEIGHT:
+        raise ValueError(f"row weight {st.row_weight} outside the seeded "
+                         f"kernels' 1..{MAX_SEEDED_ROW_WEIGHT}")
+    if not 1 <= st.layers <= MAX_SEEDED_LAYERS:
+        raise ValueError(f"{st.layers} layers outside the seeded kernels' "
+                         f"1..{MAX_SEEDED_LAYERS}")
+
+
+@functools.cache
+def _decode_lib() -> ctypes.CDLL:
+    lib = _load("seeded_decode")
+    ptr, i32, ints = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    lib.seeded_decode_launch.argtypes = [i32, i32, i32, i32, ctypes.c_uint, ints,
+                                         ints, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+                                         ptr, i32, i32, i32, i32, i32, ptr]
+    lib.seeded_decode_launch.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _encode_lib() -> ctypes.CDLL:
+    lib = _load("seeded_encode")
+    ptr, i32, ints = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    lib.seeded_encode_launch.argtypes = [i32, i32, i32, i32, ctypes.c_uint, ints,
+                                         ints, ptr, ptr, ctypes.c_longlong, i32,
+                                         i32, ptr]
+    lib.seeded_encode_launch.restype = ctypes.c_int
+    return lib
+
+
+def _check_seeded(st, values, erased, iters, *, batched, budgets=None) -> None:
+    _check_spec(st)
+    _check_decode(st.cols, values, erased, iters, batched=batched,
+                  budgets=budgets)
+
+
+def _launch_seeded(st, values: torch.Tensor, erased: torch.Tensor, iters: int,
+                   *, adaptive: bool, budgets: torch.Tensor | None = None):
+    """Launch the seeded decode on ``values (B, N, V)`` / ``erased (B, N)``;
+    returns ``(values, erased, rounds)`` as :func:`_launch` does.  Past the
+    shared memory a block may hold, each block's state goes to a
+    device-memory scratch."""
+    if values.device.type != "cuda":
+        raise ValueError(f"no decode for device {values.device}")
+    lib = _decode_lib()
+    B, N, V = values.shape
+    dev = values.device
+    out_v = torch.empty_like(values)
+    out_e = torch.empty_like(erased)
+    rounds = torch.empty(B, dtype=torch.int32, device=dev) if adaptive else None
+    scratch = torch.empty((B, st.rows, V), dtype=torch.float32, device=dev)
+    state = None
+    if _smem_bytes(N) > MAX_SMEM_BYTES:
+        blocks = -(-V // _COLS_PER_BLOCK) * B
+        state = torch.empty(blocks * _smem_bytes(N), dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.seeded_decode_launch(
+            *_spec_args(st), values.data_ptr(), erased.data_ptr(),
+            None if budgets is None else budgets.data_ptr(), out_v.data_ptr(),
+            out_e.data_ptr(), None if rounds is None else rounds.data_ptr(),
+            scratch.data_ptr(), None if state is None else state.data_ptr(),
+            B, N, V, iters, int(adaptive), stream)
+    _raise_on(rc, lib, "seeded_decode")
+    return out_v, out_e, rounds
+
+
+def peel_decode_seeded_cuda(st, values: torch.Tensor, erased: torch.Tensor,
+                            iters: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`peel_decode_cuda` for the seeded code whose ``(rows, cols)``
+    block ``st`` is H: exactly ``iters`` rounds of one pattern, ``values
+    (st.cols, V)`` float32, ``erased (st.cols,)`` bool."""
+    iters = int(iters)
+    _check_seeded(st, values, erased, iters, batched=False)
+    if values.device.type == "cpu":
+        return ref.decode_seeded_ref(st, values, erased, iters)
+    v, e, _ = _launch_seeded(st, values[None], erased[None], iters,
+                             adaptive=False)
+    peel_decode_seeded_cuda.launches += 1
+    return v[0], e[0]
+
+
+def peel_decode_batch_seeded_cuda(st, values: torch.Tensor,
+                                  erased: torch.Tensor, iters: int
+                                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`peel_decode_batch_cuda` for a seeded code: ``values (B, N,
+    V)``, ``erased (B, N)``, one launch."""
+    iters = int(iters)
+    _check_seeded(st, values, erased, iters, batched=True)
+    if values.device.type == "cpu":
+        return ref.decode_seeded_batch_ref(st, values, erased, iters)
+    v, e, _ = _launch_seeded(st, values, erased, iters, adaptive=False)
+    peel_decode_batch_seeded_cuda.launches += 1
+    return v, e
+
+
+def peel_decode_adaptive_seeded_cuda(st, values: torch.Tensor,
+                                     erased: torch.Tensor, max_iters: int
+                                     ) -> tuple[torch.Tensor, torch.Tensor,
+                                                torch.Tensor]:
+    """:func:`peel_decode_adaptive_cuda` for a seeded code: early exit
+    within ``max_iters`` rounds; ``rounds`` a 0-d int32 device tensor."""
+    max_iters = int(max_iters)
+    _check_seeded(st, values, erased, max_iters, batched=False)
+    if values.device.type == "cpu":
+        return ref.decode_seeded_adaptive_ref(st, values, erased, max_iters)
+    v, e, d = _launch_seeded(st, values[None], erased[None], max_iters,
+                             adaptive=True)
+    peel_decode_adaptive_seeded_cuda.launches += 1
+    return v[0], e[0], d[0]
+
+
+def peel_decode_batch_adaptive_seeded_cuda(st, values: torch.Tensor,
+                                           erased: torch.Tensor,
+                                           budgets: torch.Tensor
+                                           ) -> tuple[torch.Tensor, torch.Tensor,
+                                                      torch.Tensor]:
+    """:func:`peel_decode_batch_adaptive_cuda` for a seeded code: per-slot
+    early exit under ``budgets (B,)`` int32 on the values' device."""
+    _check_seeded(st, values, erased, 0, batched=True, budgets=budgets)
+    if values.device.type == "cpu":
+        return ref.decode_seeded_batch_adaptive_ref(st, values, erased, budgets)
+    v, e, d = _launch_seeded(st, values, erased, 0, adaptive=True,
+                             budgets=budgets)
+    peel_decode_batch_adaptive_seeded_cuda.launches += 1
+    return v, e, d
+
+
+def encode_seeded_fused_cuda(st, y: torch.Tensor, row0: int = 0,
+                             n_out: int | None = None) -> torch.Tensor:
+    """Codeword rows ``[row0, row0 + n_out)`` of a seeded LDGM code,
+    generator rows regenerated from the seed in the kernel: no generator
+    and no gather table.
+
+    ``st`` is the structure of the generator's ``(p, K)`` parity block
+    (``st.cols == K``); ``y (K, V)`` float32 contiguous; ``n_out`` defaults
+    to the whole codeword ``K + p``.  Rows at or past ``K + p`` come out
+    zero (for finite ``y``).  Returns ``(n_out, V)`` float32, bit-identical
+    to :func:`ref.gather_encode` over the same rows' tables.
+    """
+    _check_spec(st)
+    row0 = int(row0)
+    n_out = st.cols + st.rows if n_out is None else int(n_out)
+    _check_operands(y.device, [("y", y, torch.float32, 2)])
+    if y.shape[0] != st.cols or y.shape[1] < 1:
+        raise ValueError(f"y must be ({st.cols}, V) with V >= 1; got "
+                         f"{tuple(y.shape)}")
+    if row0 < 0 or n_out < 1:
+        raise ValueError(f"need row0 >= 0 and n_out >= 1; got row0={row0}, "
+                         f"n_out={n_out}")
+    if y.device.type == "cpu":
+        return ref.encode_seeded_ref(st, y, row0, n_out)
+    if y.device.type != "cuda":
+        raise ValueError(f"no encode for device {y.device}")
+    lib = _encode_lib()
+    out = torch.empty((n_out, y.shape[1]), dtype=torch.float32, device=y.device)
+    with torch.cuda.device(y.device):
+        stream = torch.cuda.current_stream(y.device).cuda_stream
+        rc = lib.seeded_encode_launch(*_spec_args(st), y.data_ptr(), out.data_ptr(),
+                                      row0, n_out, y.shape[1], stream)
+    _raise_on(rc, lib, "seeded_encode")
+    encode_seeded_fused_cuda.launches += 1
+    return out
+
+
 for _w in (peel_decode_cuda, peel_decode_batch_cuda, peel_decode_adaptive_cuda,
-           peel_decode_batch_adaptive_cuda):
+           peel_decode_batch_adaptive_cuda, peel_decode_seeded_cuda,
+           peel_decode_batch_seeded_cuda, peel_decode_adaptive_seeded_cuda,
+           peel_decode_batch_adaptive_seeded_cuda, encode_seeded_fused_cuda):
     _w.launches = 0
 del _w

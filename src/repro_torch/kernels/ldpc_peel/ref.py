@@ -22,6 +22,22 @@ takes a batch of patterns:
 
 These are what the kernel's wrappers run for tensors on the CPU, and what
 the kernel is held against on the card.
+
+The SEEDED codes (``csrc/seeded_decode.cu``, ``csrc/seeded_encode.cu``)
+have no table at all: :func:`seeded_rows` regenerates the (column, weight)
+pairs of any row range from the seed, bit-identical to the NumPy
+reference ``repro_torch.core.ldpc._structure_rows_raw``.  Their plain
+versions build the sorted table of the rows they need and run a GATHER
+round over it (:func:`table_round`: no dense H, so they run at N = 262144)
+with the same "lo" tie-break and the same ascending-column sums:
+
+* :func:`decode_seeded_ref`, :func:`decode_seeded_batch_ref`,
+  :func:`decode_seeded_adaptive_ref`, :func:`decode_seeded_batch_adaptive_ref`;
+* :func:`encode_seeded_ref` — seeded-LDGM codeword rows from ``row0``, the
+  sequential unfused chain of :func:`gather_encode` in table order.
+
+A seeded structure ``st`` is anything with the fields of
+``repro_torch.core.ldpc.SeededStructure``.
 """
 from __future__ import annotations
 
@@ -31,7 +47,10 @@ import torch
 
 __all__ = ["dense_h", "lo_round", "adaptive_loop", "decode_fused_ref",
            "decode_fused_batch_ref", "decode_fused_adaptive_ref",
-           "decode_fused_batch_adaptive_ref"]
+           "decode_fused_batch_adaptive_ref", "seeded_rows", "seeded_table",
+           "table_round", "decode_seeded_ref", "decode_seeded_batch_ref",
+           "decode_seeded_adaptive_ref", "decode_seeded_batch_adaptive_ref",
+           "gather_encode", "generator_window", "encode_seeded_ref"]
 
 
 def dense_h(check_idx: torch.Tensor, check_coeff: torch.Tensor,
@@ -161,3 +180,198 @@ def decode_fused_adaptive_ref(H: torch.Tensor, values: torch.Tensor,
     v, e, d = decode_fused_batch_adaptive_ref(H, values[None], erased[None],
                                               budgets)
     return v[0], e[0], d[0]
+
+
+# ------------------------------------------------------------------ seeded
+
+_MASK32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, mult: int) -> torch.Tensor:
+    """``x * mult mod 2^32`` for ``x`` in [0, 2^32) held in int64.
+
+    The product itself can reach 2^64 and overflow int64, so the multiply
+    is split at 16 bits: each partial product stays below 2^48.
+    """
+    lo = (x & 0xFFFF) * mult
+    hi = (((x >> 16) * mult) & 0xFFFF) << 16
+    return (lo + hi) & _MASK32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """The lowbias32 avalanche hash on uint32 values held in int64 (torch
+    has no usable uint32 multiply): every multiply wraps mod 2^32 and every
+    shift is logical, as in ``repro_torch.core.ldpc._mix32``."""
+    x = x & _MASK32
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def seeded_rows(st, lo: int, hi: int, device=None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(cols (n, r) int64, weights (n, r) float32)`` of rows [lo, hi) in
+    DRAW order, regenerated from the seed on ``device``.
+
+    Row ``i`` of layer ``t = i // rows_per_layer`` covers the columns
+    ``(a_t·(jl·r + s) + b_t) mod cols`` (``jl`` the row within its layer,
+    computed in int64, so exact), and slot ``s`` weighs
+    ``sign·(1 + m·2^-23)`` from the hash of the edge counter ``i·r + s``
+    cast to uint32 — every float32 step exact.
+    """
+    if not (0 <= lo <= hi <= st.rows):
+        raise ValueError(f"row range [{lo}, {hi}) outside [0, {st.rows})")
+    r = st.row_weight
+    rows = torch.arange(lo, hi, dtype=torch.int64, device=device)[:, None]
+    s = torch.arange(r, dtype=torch.int64, device=device)[None, :]
+    t = rows // st.rows_per_layer
+    jl = rows - t * st.rows_per_layer
+    a = torch.tensor(st.strides, dtype=torch.int64, device=device)[t]
+    b = torch.tensor(st.offsets, dtype=torch.int64, device=device)[t]
+    cols = (a * (jl * r + s) + b) % st.cols
+    u = _mix32(((rows * r + s) & _MASK32) ^ st.wseed)
+    sign = 1.0 - 2.0 * (u & 1).to(torch.float32)
+    m = (u >> 9).to(torch.float32)                            # [0, 2^23)
+    return cols, sign * (1.0 + m * 2.0 ** -23)
+
+
+def seeded_table(st, lo: int, hi: int, device=None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rows [lo, hi) as a neighbour table: each row's pairs sorted by
+    ascending column (columns within a row are distinct)."""
+    cols, w = seeded_rows(st, lo, hi, device)
+    cols, order = cols.sort(dim=1)
+    return cols, torch.gather(w, 1, order)
+
+
+def table_round(idx: torch.Tensor, w: torch.Tensor, vals: torch.Tensor,
+                e: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One flooding round of B patterns over a neighbour table, "lo"
+    tie-break, with no dense H.
+
+    ``idx (p, r)`` int64 columns in ascending order per row and ``w (p,
+    r)`` their weights (no padding slots), ``vals (B, N, V)``, ``e (B, N)``
+    bool.  The same round as :func:`lo_round`: each check with exactly one
+    erased neighbour proposes ``-(Σ_known w·c) / w_erased``, summed over
+    its known neighbours in ascending column order, one rounded multiply
+    and one rounded add per term; the lowest proposing row wins.
+    """
+    p = idx.shape[0]
+    N = vals.shape[1]
+    eg = e[:, idx]                                             # (B, p, r)
+    solvable = eg.sum(dim=-1) == 1                             # exact ints
+    slot = eg.to(torch.int8).argmax(dim=-1, keepdim=True)      # (B, p, 1)
+    pos = torch.gather(idx.expand(e.shape[0], -1, -1), 2, slot)[..., 0]
+    coeff = torch.gather(w.expand(e.shape[0], -1, -1), 2, slot)[..., 0]
+    sums = vals.new_zeros((vals.shape[0], p, vals.shape[2]))  # (B, p, V)
+    for s in range(idx.shape[1]):
+        add = ~eg[:, :, s, None]
+        sums = torch.where(add, sums + w[:, s, None] * vals[:, idx[:, s], :], sums)
+    new_val = -sums / torch.where(coeff == 0.0, 1.0, coeff)[..., None]
+    rows = torch.arange(p, device=idx.device).expand(e.shape[0], -1)
+    winner = torch.full((e.shape[0], N + 1), p, dtype=torch.int64,
+                        device=idx.device)
+    winner.scatter_reduce_(1, torch.where(solvable, pos, N), rows, reduce="amin")
+    winner = winner[:, :N]
+    resolved = winner < p
+    take = winner.clamp(max=p - 1)[..., None].expand_as(vals)
+    vals = torch.where(resolved[..., None], torch.gather(new_val, 1, take), vals)
+    return vals, e & ~resolved
+
+
+def _seeded_round(st, device):
+    idx, w = seeded_table(st, 0, st.rows, device)
+    return lambda v, e: table_round(idx, w, v, e)
+
+
+def decode_seeded_batch_ref(st, values: torch.Tensor, erased: torch.Tensor,
+                            iters: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exactly ``iters`` rounds of each of B patterns of the seeded code
+    ``st`` (its ``(rows, cols)`` block is H): ``values (B, N, V)``,
+    ``erased (B, N)`` → ``(values, erased)``."""
+    round_fn = _seeded_round(st, values.device)
+    vals, e = values.clone(), erased.clone()
+    for _ in range(int(iters)):
+        vals, e = round_fn(vals, e)
+    return vals, e
+
+
+def decode_seeded_ref(st, values: torch.Tensor, erased: torch.Tensor,
+                      iters: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exactly ``iters`` rounds of one pattern: ``values (N, V)``,
+    ``erased (N,)``."""
+    v, e = decode_seeded_batch_ref(st, values[None], erased[None], iters)
+    return v[0], e[0]
+
+
+def decode_seeded_batch_adaptive_ref(st, values: torch.Tensor,
+                                     erased: torch.Tensor,
+                                     budgets: torch.Tensor
+                                     ) -> tuple[torch.Tensor, torch.Tensor,
+                                                torch.Tensor]:
+    """Per-slot early exit of B patterns under ``budgets (B,)``: returns
+    ``(values, erased, rounds (B,) int32)``."""
+    return adaptive_loop(_seeded_round(st, values.device), values.clone(),
+                         erased.clone(), budgets)
+
+
+def decode_seeded_adaptive_ref(st, values: torch.Tensor, erased: torch.Tensor,
+                               max_iters: int
+                               ) -> tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """Early exit of one pattern within ``max_iters`` rounds: returns
+    ``(values (N, V), erased (N,), rounds)`` with ``rounds`` 0-d int32."""
+    budgets = torch.full((1,), int(max_iters), dtype=torch.int32,
+                         device=values.device)
+    v, e, d = decode_seeded_batch_adaptive_ref(st, values[None], erased[None],
+                                               budgets)
+    return v[0], e[0], d[0]
+
+
+def gather_encode(idx: torch.Tensor, coeff: torch.Tensor,
+                  y: torch.Tensor) -> torch.Tensor:
+    """``z[i] = Σ_s coeff[i, s]·y[idx[i, s]]``, summed SEQUENTIALLY in
+    table-slot order: the first term a rounded product, every later one a
+    rounded product and a rounded add (never a fused multiply-add).
+    ``y (K,)`` or ``(K, V)``; returns ``(n,)`` / ``(n, V)``."""
+    c = coeff.to(y.dtype)
+    if y.ndim == 2:
+        c = c[..., None]
+    idx = idx.long()
+    out = c[:, 0] * y[idx[:, 0]]
+    for s in range(1, idx.shape[1]):
+        out = out + c[:, s] * y[idx[:, s]]
+    return out
+
+
+def generator_window(st, row0: int, n_out: int, device=None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Gather tables ``(idx (n_out, r), coeff (n_out, r))`` of the
+    seeded-LDGM generator rows ``[row0, row0 + n_out)``, ``st`` the
+    structure of its ``(p, K)`` parity block: systematic rows (< K) are
+    ``[row, 0, ...]`` with weights ``[1, 0, ...]``, parity rows the seeded
+    rows in ascending column order, and rows at or past ``N = K + p`` all
+    column 0 with weight 0 (they encode to zero, as the kernel's do)."""
+    K, N = st.cols, st.cols + st.rows
+    rows = torch.arange(row0, row0 + n_out, dtype=torch.int64, device=device)
+    idx = torch.zeros((n_out, st.row_weight), dtype=torch.int64, device=device)
+    coeff = torch.zeros((n_out, st.row_weight), dtype=torch.float32,
+                        device=device)
+    sys = rows < K
+    idx[:, 0] = torch.where(sys, rows, 0)
+    coeff[:, 0] = sys.to(torch.float32)
+    plo, phi = min(max(row0, K), N) - K, min(max(row0 + n_out, K), N) - K
+    if phi > plo:
+        first = plo + K - row0
+        idx[first:first + phi - plo], coeff[first:first + phi - plo] = \
+            seeded_table(st, plo, phi, device)
+    return idx, coeff
+
+
+def encode_seeded_ref(st, y: torch.Tensor, row0: int, n_out: int) -> torch.Tensor:
+    """Seeded-LDGM codeword rows ``[row0, row0 + n_out)`` of ``y (K, V)``:
+    :func:`gather_encode` over :func:`generator_window`."""
+    idx, coeff = generator_window(st, int(row0), int(n_out), y.device)
+    return gather_encode(idx, coeff, y)

@@ -1,5 +1,6 @@
-"""The CUDA decode kernel against its plain PyTorch versions, on the card:
-all four contracts (fixed D and early exit, one pattern and a batch).
+"""The CUDA kernels against their plain PyTorch versions, on the card: the
+table decode's four contracts (fixed D and early exit, one pattern and a
+batch), the seeded decode's four, and the seeded encode.
 
 These tests need a CUDA card and skip without one (the decision is taken
 inside the fixture, at run time).  They import no JAX, so they run on a
@@ -12,20 +13,33 @@ quotient is an exact integer in f32, so kernel and plain version agree bit
 for bit.  On Gaussian codes with codeword payloads they agree to
 ``1e-4·max|c| + 4·max|plain − c|`` (f32 summation order, amplified along
 peeling chains as the plain version's own error against the codeword
-shows; see tests/test_torch_decode.py).
+shows; see tests/test_torch_decode.py).  The seeded kernels sum in the
+plain versions' order, so they are held bit for bit: the seeded decode
+against its plain version and against the table kernel on the same code,
+the seeded encode against its plain version (compared as bit patterns).
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import decoder
-from repro_torch.core.ldpc import make_parity_only_ldpc, make_regular_ldpc
+from repro_torch.core import decoder, encoding
+from repro_torch.core.ldpc import (SeededLDPC, make_parity_only_ldpc, make_regular_ldpc,
+                                   make_seeded_ldgm, make_seeded_ldpc)
 from repro_torch.kernels.ldpc_peel import (decode_fused_adaptive_ref,
                                            decode_fused_batch_adaptive_ref,
                                            decode_fused_batch_ref, decode_fused_ref,
-                                           dense_h, peel_decode_adaptive_cuda,
+                                           decode_seeded_adaptive_ref,
+                                           decode_seeded_batch_adaptive_ref,
+                                           decode_seeded_batch_ref, decode_seeded_ref,
+                                           dense_h, encode_seeded_fused_cuda,
+                                           encode_seeded_ref, ops,
+                                           peel_decode_adaptive_cuda,
+                                           peel_decode_adaptive_seeded_cuda,
                                            peel_decode_batch_adaptive_cuda,
-                                           peel_decode_batch_cuda, peel_decode_cuda)
+                                           peel_decode_batch_adaptive_seeded_cuda,
+                                           peel_decode_batch_cuda,
+                                           peel_decode_batch_seeded_cuda,
+                                           peel_decode_cuda, peel_decode_seeded_cuda)
 
 
 @pytest.fixture
@@ -275,3 +289,136 @@ def test_budgets_are_read_on_the_device(cuda):
     assert a.rounds_used.device.type == "cuda"
     assert torch.equal(a.rounds_used, b.rounds_used)
     assert torch.equal(a.values, b.values) and torch.equal(a.erased, b.erased)
+
+
+# --------------------------------------------------------- seeded kernels
+
+SEEDED = {}
+
+
+def _seeded(K):
+    if K not in SEEDED:
+        SEEDED[K] = make_seeded_ldpc(K, seed=0)
+    return SEEDED[K]
+
+
+def _seeded_inputs(N, B, V, f, seed, dev):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    e = torch.rand((B, N), generator=g, device=dev) < f
+    v = torch.randn((B, N, V), generator=g, device=dev)
+    return torch.where(e[..., None], 1e3 * v, v).contiguous(), e
+
+
+def _same(a, b):
+    """Bit for bit (NaN patterns and signed zeros included)."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("K", [256, 1024])
+@pytest.mark.parametrize("B,V", [(1, 1), (1, 2), (4, 1), (8, 5)])
+@pytest.mark.parametrize("f", [0.0, 0.25, 0.45])
+def test_seeded_kernels_match_plain_and_table_kernel(cuda, K, B, V, f):
+    code = _seeded(K)
+    st = decoder.seeded_spec(code)
+    tables = decoder.code_tables(code, cuda)
+    v, e = _seeded_inputs(code.N, B, V, f, K + B + V, cuda)
+    budgets = torch.tensor([0, 1, 3, code.N] * 2, dtype=torch.int32, device=cuda)[:B]
+    runs = [
+        (lambda: peel_decode_batch_seeded_cuda(st, v, e, 8),
+         lambda: decode_seeded_batch_ref(st, v, e, 8),
+         lambda: peel_decode_batch_cuda(tables, v, e, 8)),
+        (lambda: peel_decode_batch_adaptive_seeded_cuda(st, v, e, budgets),
+         lambda: decode_seeded_batch_adaptive_ref(st, v, e, budgets),
+         lambda: peel_decode_batch_adaptive_cuda(tables, v, e, budgets)),
+        (lambda: peel_decode_seeded_cuda(st, v[0], e[0], 8),
+         lambda: decode_seeded_ref(st, v[0], e[0], 8),
+         lambda: peel_decode_cuda(tables, v[0], e[0], 8)),
+        (lambda: peel_decode_adaptive_seeded_cuda(st, v[0], e[0], code.N),
+         lambda: decode_seeded_adaptive_ref(st, v[0], e[0], code.N),
+         lambda: peel_decode_adaptive_cuda(tables, v[0], e[0], code.N)),
+    ]
+    for kern, plain, table in runs:
+        kout, pout, tout = kern(), plain(), table()
+        torch.cuda.synchronize()
+        for k, p, t in zip(kout, pout, tout):
+            assert torch.equal(k, p) and torch.equal(k, t)
+        assert _same(kout[0], pout[0]) and _same(kout[0], tout[0])
+
+
+@pytest.mark.parametrize("V", [1, 6])
+def test_seeded_state_in_device_memory_equals_shared(cuda, monkeypatch, V):
+    code = _seeded(1024)
+    st = decoder.seeded_spec(code)
+    v, e = _seeded_inputs(code.N, 3, V, 0.42, 11, cuda)
+    budgets = torch.tensor([2, 0, code.N], dtype=torch.int32, device=cuda)
+    shared = peel_decode_batch_adaptive_seeded_cuda(st, v, e, budgets)
+    monkeypatch.setattr(ops, "MAX_SMEM_BYTES", 0)      # forces the scratch state
+    scratch = peel_decode_batch_adaptive_seeded_cuda(st, v, e, budgets)
+    torch.cuda.synchronize()
+    for a, b in zip(shared, scratch):
+        assert torch.equal(a, b)
+
+
+def test_structure_only_code_past_shared_memory(cuda):
+    code = SeededLDPC(N=65536, K=32768, l=4, r=8, seed=5)
+    st = decoder.seeded_spec(code)
+    v, e = _seeded_inputs(code.N, 1, 1, 0.3, 12, cuda)
+    kv, ke = peel_decode_seeded_cuda(st, v[0], e[0], 6)
+    pv, pe = decode_seeded_ref(st, v[0], e[0], 6)
+    torch.cuda.synchronize()
+    assert torch.equal(ke, pe) and _same(kv, pv)
+    assert bool((e[0] & ~ke).any())
+
+
+@pytest.mark.parametrize("V", [1, 3])
+@pytest.mark.parametrize("row0,n_out", [(0, None), (200, 300), (700, 200), (1000, 7)])
+def test_seeded_encode_matches_plain(cuda, V, row0, n_out):
+    code = make_seeded_ldgm(512, 256, seed=3)             # N = 768
+    st = encoding.generator_structure_of(code)
+    y = torch.randn((code.K, V), generator=torch.Generator(device=cuda).manual_seed(V),
+                    device=cuda)
+    y[0, 0] = -0.0
+    n = code.N if n_out is None else n_out
+    got = encode_seeded_fused_cuda(st, y, row0, n_out)
+    want = encode_seeded_ref(st, y, row0, n)
+    torch.cuda.synchronize()
+    assert _same(got, want)
+    idx, coeff = encoding.generator_gather_tables(code, cuda)
+    rows = slice(min(row0, code.N), min(row0 + n, code.N))
+    assert _same(got[:rows.stop - rows.start], encoding.gather_encode(idx[rows], coeff[rows], y))
+
+
+def test_seeded_encode_keeps_the_pad_terms(cuda):
+    # 0 * y[0] turns an inf in y[0] into NaN in every systematic row, as
+    # the table gather does.
+    code = make_seeded_ldgm(64, 32, seed=1)
+    st = encoding.generator_structure_of(code)
+    y = torch.ones((code.K, 1), device=cuda)
+    y[0] = float("inf")
+    got = encode_seeded_fused_cuda(st, y)
+    want = encode_seeded_ref(st, y, 0, code.N)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(got[1:code.K]).all())
+    assert _same(got, want)
+
+
+def test_seeded_wrappers_count_their_own_launches(cuda):
+    code = _seeded(256)
+    v, e = _seeded_inputs(code.N, 2, 1, 0.3, 13, cuda)
+    wrappers = (peel_decode_seeded_cuda, peel_decode_batch_seeded_cuda,
+                peel_decode_adaptive_seeded_cuda, peel_decode_batch_adaptive_seeded_cuda,
+                peel_decode_cuda)
+    before = [w.launches for w in wrappers]
+    decoder.peel_decode(code, v[0], e[0], 3)                 # auto: seeded
+    decoder.peel_decode_batch(code, v, e, 3)
+    decoder.peel_decode_adaptive(code, v[0], e[0], 4)
+    decoder.peel_decode_batch_adaptive(code, v, e, budgets=[1, 2])
+    decoder.peel_decode_batch_adaptive(code, v, e, budgets=[1, 2])
+    decoder.peel_decode(code, v[0], e[0], 3, backend="cuda")
+    decoder.peel_decode(code, v[0].cpu(), e[0].cpu(), 3)
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [1, 1, 1, 2, 1]
+    ldgm = make_seeded_ldgm(64, 32, seed=1)
+    n = encode_seeded_fused_cuda.launches
+    encoding.encode_seeded(ldgm, torch.ones(64, device=cuda))
+    encoding.encode_seeded(ldgm, torch.ones(64))
+    assert encode_seeded_fused_cuda.launches == n + 1

@@ -11,9 +11,10 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
 
-# A 2-step CPU slice through the port's public entry points, and a tiny
-# coded-query server in both modes; prints the modules of JAX or the JAX
-# package that ended up loaded.
+# A 2-step CPU slice through the port's public entry points, a tiny
+# coded-query server in both modes, and the seeded paths (Scheme 2 with
+# the seeded encode, a structure-only decode); prints the modules of JAX or
+# the JAX package that ended up loaded.
 _SLICE = """
 import json, sys, numpy as np, torch
 from repro_torch.core import (FixedCountStragglers, Scheme2, Scheme2Blocked,
@@ -42,9 +43,18 @@ for mode, adaptive in (("continuous", True), ("lockstep", False)):
         bat.submit(CodedQuery(i, rng.standard_normal(20).astype(np.float32),
                               rng.random(40) < 0.3))
     served.append(len(bat.run()))
+from repro_torch.core import CodedComputeEngine
+from repro_torch.core.ldpc import SeededLDPC, make_seeded_ldgm
+seeded = Scheme2.build_seeded(make_seeded_ldgm(20, 10, row_weight=4),
+                              second_moment(small.X, small.y), lr=small.lr,
+                              decode_iters=6, encode_fused=True)
+run_pgd(seeded, torch.zeros(20), FixedCountStragglers(3), 2, generator=gen)
+dec = CodedComputeEngine(SeededLDPC(N=64, K=32, l=4, r=8), decode_iters=4).decode(
+    torch.ones(64), torch.arange(64) % 5 == 0)
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "repro") or m.startswith(("jax.", "jaxlib.", "repro.")))
-print(json.dumps({"bad": bad, "errors": res.errors.tolist(), "served": served}))
+print(json.dumps({"bad": bad, "errors": res.errors.tolist(), "served": served,
+                  "seeded_unresolved": int(dec.erased.sum())}))
 """
 
 
@@ -57,6 +67,7 @@ def test_slice_runs_without_jax_or_repro():
     assert result["bad"] == []
     assert len(result["errors"]) == 2
     assert result["served"] == [3, 3]
+    assert result["seeded_unresolved"] == 0
 
 
 def _sources():
