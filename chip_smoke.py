@@ -58,7 +58,30 @@ Phases, each printing its own lines:
    a step, D = 8, 20 steps of run_pgd.  The encode and decode kernels
    launch once a step each, and the run with encode_fused=False (the table
    gather) on the same masks is bit-identical.  Prints ms per step, the
-   device's busy share and the encode against torch.sparse.mm.
+   device's busy share and the encode against torch.sparse.mm;
+12. the replay kernel against its plain version: the (40, 20) code and the
+   (3, 6) code at K = 256 with Gaussian and ±1 weights, the four contracts
+   under their rules ("hi" for one pattern, "lo" for a batch), B in
+   {1, 8, 64}, V in {1, 32}, erasure fractions {0, 0.25, 0.45}, mixed
+   per-slot budgets including 0, NaN and inf in erased entries: values bit
+   for bit (NaNs by position), masks and rounds exact, and masks and
+   rounds equal to the flooding kernel's;
+13. the recurring-straggler stream (benchmarks/decoder_scaling.py:672
+   run_replay_sweep): make_parity_only_ldpc(4096) (N = 8192), 8 patterns
+   at q = 0.25 cycled over 64 queries, budget 32, through
+   CodedComputeEngine(backend="replay", adaptive=True) over a cold
+   ScheduleCache: hit rate 0.875, replay launches equal to the decodes,
+   masks and rounds equal to the "cuda" adaptive decode's; prints µs per
+   query for both;
+14. replay serving at phase 8's configuration (320 queries, 64 slots,
+   budget 32) with rounds_per_launch = 32 and the batcher's own schedule
+   cache, against the "cuda" batcher at the same chunk: accounting
+   identical, gradients within the anchored bound, replay launches equal
+   to the batcher's; prints queries/s of cold runs (every query brings a
+   new pattern, as in phase 8);
+15. the table decode past shared memory: make_parity_only_ldpc(24576)
+   (N = 49,152, state in device memory), all four contracts against the
+   table plain version, bit for bit; prints the kernel's ms.
 
 Then, as the last three lines: the card's name and power limit, one JSON
 object with each kernel's launches, error and times, and
@@ -175,6 +198,15 @@ def same_bits(a, b) -> bool:
     return torch.equal(a, b)
 
 
+def same_bits_nan(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit, every NaN compared by position only: which input
+    NaN an operation on two NaNs returns is the implementation's choice
+    (IEEE 754)."""
+    nan = torch.isnan(a)
+    return (a.shape == b.shape and torch.equal(nan, torch.isnan(b))
+            and same_bits(torch.where(nan, 0.0, a), torch.where(nan, 0.0, b)))
+
+
 def all_same(xs, ys) -> bool:
     return len(xs) == len(ys) and all(same_bits(x, y) for x, y in zip(xs, ys))
 
@@ -239,7 +271,13 @@ def main() -> int:
                                                peel_decode_batch_adaptive_seeded_cuda,
                                                peel_decode_batch_cuda,
                                                peel_decode_batch_seeded_cuda, peel_decode_cuda,
-                                               peel_decode_seeded_cuda)
+                                               peel_decode_replay_cuda, peel_decode_seeded_cuda,
+                                               replay_ref)
+    from repro_torch.kernels.ldpc_peel.ref import (decode_table_adaptive_ref,
+                                                   decode_table_batch_adaptive_ref,
+                                                   decode_table_batch_ref, decode_table_ref)
+    from repro_torch.core import ScheduleCache
+    from repro_torch.kernels.ldpc_peel import ops as peel_ops
     from repro_torch.serving import CodedQuery, CodedQueryBatcher
 
     wrappers = {"decode_fused": peel_decode_cuda, "decode_fused_batch": peel_decode_batch_cuda,
@@ -249,7 +287,8 @@ def main() -> int:
                 "decode_seeded_batch": peel_decode_batch_seeded_cuda,
                 "decode_seeded_adaptive": peel_decode_adaptive_seeded_cuda,
                 "decode_seeded_batch_adaptive": peel_decode_batch_adaptive_seeded_cuda,
-                "encode_seeded_fused": encode_seeded_fused_cuda}
+                "encode_seeded_fused": encode_seeded_fused_cuda,
+                "decode_replay": peel_decode_replay_cuda}
 
     def reset_counts() -> None:
         for w in wrappers.values():
@@ -1077,6 +1116,334 @@ def main() -> int:
           f"once); kernel bit-identical to the plain version")
     del mom, fused, table, res11, ref11, G_csr
 
+    # ------------------------------------------- 12. replay kernel vs plain
+    t0 = time.perf_counter()
+    gen12 = torch.Generator(device=dev).manual_seed(args.seed + 12)
+    replay_codes = {"gaussian N=40": codes["gaussian", 20, 0],
+                    "gaussian N=512": make_parity_only_ldpc(256, seed=0),
+                    "pm1 N=512": make_parity_only_ldpc(256, seed=0, values="pm1")}
+    n12 = {"fixed": 0, "adaptive": 0, "batch": 0, "batch_adaptive": 0}
+    nan_cases = nan_payload_same = 0
+    err12 = 0.0
+    for cname, code in replay_codes.items():
+        N = code.N
+        tables = decoder.code_tables(code, dev)
+        for B in (1, 8, 64):
+            for V in (1, 32):
+                for fi, f in enumerate((0.0, 0.25, 0.45)):
+                    e = torch.rand((B, N), generator=gen12, device=dev) < f
+                    if cname.startswith("pm1"):     # integer payloads: every step exact
+                        v = torch.randint(-8, 9, (B, N, V), generator=gen12, device=dev).float()
+                    else:
+                        v = torch.randn((B, N, V), generator=gen12, device=dev)
+                    v = torch.where(e[..., None], 1e3 * v, v)
+                    pos = torch.nonzero(e[0])[:2, 0]
+                    v[0, pos] = torch.tensor([float("nan"), float("inf")],
+                                             device=dev)[:len(pos), None]
+                    v = v.contiguous()
+                    if B == 1:
+                        budgets = torch.tensor([(0, 8, N)[fi]], dtype=torch.int32, device=dev)
+                    else:   # mixed per-slot budgets, slot 0 inert
+                        pick = torch.randint(0, 5, (B,), generator=gen12, device=dev)
+                        budgets = torch.tensor([0, 1, 3, 8, N], dtype=torch.int32,
+                                               device=dev)[pick]
+                        budgets[0] = 0
+                    eh = e.cpu().numpy()
+                    scheds = [decoder.compile_peel_schedule(code, eh[b]) for b in range(B)]
+                    hi1 = decoder.replay_operands(scheds[:1], "hi", dev)
+                    lo = decoder.replay_operands(scheds, "lo", dev)
+                    one = int(budgets[0])
+                    cases = {
+                        "fixed": (hi1, v[:1], e[:1], 8,
+                                  lambda: peel_decode_batch_cuda(tables, v[:1], e[:1], 8)),
+                        "adaptive": (hi1, v[:1], e[:1], one,
+                                     lambda: [x[None] for x in peel_decode_adaptive_cuda(
+                                         tables, v[0], e[0], one)]),
+                        "batch": (lo, v, e, 8,
+                                  lambda: peel_decode_batch_cuda(tables, v, e, 8)),
+                        "batch_adaptive": (lo, v, e, budgets,
+                                           lambda: peel_decode_batch_adaptive_cuda(
+                                               tables, v, e, budgets)),
+                    }
+                    for name, (pack, vv, ee, bud, flood) in cases.items():
+                        kout = peel_decode_replay_cuda(pack, vv, ee, bud)
+                        pout = replay_ref(*pack, vv, ee, bud)
+                        fout = flood()
+                        torch.cuda.synchronize()
+                        what = f"replay {name} {cname} B={B} V={V} f={f}"
+                        check(same_bits_nan(kout[0], pout[0]) and torch.equal(kout[1], pout[1])
+                              and torch.equal(kout[2], pout[2]),
+                              f"{what}: kernel and plain version differ")
+                        check(torch.equal(kout[1], fout[1]),
+                              f"{what}: masks differ from the flooding kernel's")
+                        if "adaptive" in name:
+                            check(torch.equal(kout[2], fout[2]),
+                                  f"{what}: rounds differ from the flooding kernel's")
+                        if bool(torch.isnan(pout[0]).any()):
+                            nan_cases += 1
+                            nan_payload_same += int(same_bits(kout[0], pout[0]))
+                        fin = ~torch.isnan(pout[0])
+                        if bool(fin.any()):
+                            err12 = max(err12, float((kout[0][fin] - pout[0][fin]).abs().max()))
+                        n12[name] += 1
+    print(f"[replay] kernel vs plain on the (40, 20) code and the (3, 6) code at K = 256 "
+          f"(Gaussian and pm1), B in (1, 8, 64), V in (1, 32), f in (0, 0.25, 0.45), "
+          f"mixed budgets with 0, NaN and inf in erased entries: "
+          + ", ".join(f"{n} {c} cases" for n, c in n12.items())
+          + f"; values bit-identical (NaNs by position; NaN payloads too in "
+          f"{nan_payload_same} of {nan_cases} cases with NaNs), masks and rounds "
+          f"identical, and equal to the flooding kernel's; max |diff| {err12:.3e} "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # --------------------------------- 13. the recurring-straggler stream
+    N13, P13, Q13, budget13 = 8192, 8, 64, 32
+    t0 = time.perf_counter()
+    code13 = make_parity_only_ldpc(N13 // 2, seed=args.seed)
+    rng13 = np.random.default_rng(args.seed)
+    pats13 = rng13.random((P13, N13)) < 0.25
+    vals13 = rng13.standard_normal((Q13, N13)).astype(np.float32)
+    erased13 = pats13[np.arange(Q13) % P13]
+    rx13 = torch.from_numpy(np.where(erased13, 0.0, vals13)).to(dev)
+    er13 = torch.from_numpy(erased13).to(dev)
+    cache13 = ScheduleCache()
+    replay13 = CodedComputeEngine(code13, decode_iters=budget13, backend="replay",
+                                  adaptive=True, schedule_cache=cache13)
+    flood13 = CodedComputeEngine(code13, decode_iters=budget13, backend="cuda",
+                                 adaptive=True)
+    torch.cuda.synchronize()
+    print(f"[stream] make_parity_only_ldpc({N13 // 2}) (N = {N13}) built in "
+          f"{time.perf_counter() - t0:.1f} s; {P13} patterns at q = 0.25 cycled over "
+          f"{Q13} queries, budget {budget13}")
+    reset_counts()                             # this path's run: a cold cache
+    t0 = time.perf_counter()
+    out13 = [replay13.decode(rx13[i], er13[i]) for i in range(Q13)]
+    torch.cuda.synchronize()
+    cold13 = time.perf_counter() - t0
+    launches13 = read_counts("replay stream", decode_replay=Q13)["decode_replay"]
+    st13 = cache13.stats()
+    check(st13["misses"] == P13 and st13["hit_rate"] == 1 - P13 / Q13,
+          f"replay stream: cold-cache stats {st13}")
+    fl13 = [flood13.decode(rx13[i], er13[i]) for i in range(Q13)]
+    torch.cuda.synchronize()
+    for i in range(Q13):
+        check(torch.equal(out13[i].erased, fl13[i].erased)
+              and int(out13[i].rounds_used) == int(fl13[i].rounds_used),
+              f"replay stream: query {i} masks or rounds differ from the cuda decode's")
+        check(bool(torch.isfinite(out13[i].values).all()), "replay stream: non-finite values")
+    for i in range(P13):                       # the kernel against its plain version
+        pack = decoder.replay_operands([cache13.get(code13, erased13[i])], "hi", dev)
+        vv, ee = rx13[i][None, :, None].contiguous(), er13[i][None].contiguous()
+        kout = peel_decode_replay_cuda(pack, vv, ee, budget13)
+        pout = replay_ref(*pack, vv, ee, budget13)
+        torch.cuda.synchronize()
+        check(all_same(kout, pout) and same_bits(kout[0][0, :, 0], out13[i].values),
+              f"replay stream: pattern {i}: kernel, plain version and engine differ")
+
+    def stream13(eng):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(Q13):
+            eng.decode(rx13[i], er13[i])
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    secs13 = {"replay": [], "cuda": []}
+    for _ in range(3):                         # turns: replay, cuda, cuda, replay, ...
+        for name in ("replay", "cuda"):
+            secs13[name].append(stream13(replay13 if name == "replay" else flood13))
+    us13 = {n: float(np.median(t)) / Q13 * 1e6 for n, t in secs13.items()}
+    rounds13 = [int(d.rounds_used) for d in out13[:P13]]
+    entries13 = [cache13.get(code13, erased13[i]).n_resolved for i in range(P13)]
+    print(f"[stream] cold cache: {launches13} replay launches for {Q13} decodes, cache "
+          f"{st13}; masks and rounds identical to the cuda adaptive decode's (rounds per "
+          f"pattern {rounds13}, resolved {entries13}); {cold13 / Q13 * 1e6:.1f} us/query cold")
+    print(f"[stream] warm cache, median of 3 runs of {Q13} queries (host clock after "
+          f"synchronize): replay {us13['replay']:.1f} us/query, cuda adaptive "
+          f"{us13['cuda']:.1f} us/query, ratio {us13['cuda'] / us13['replay']:.3f}")
+    pack13 = decoder.replay_operands([cache13.get(code13, erased13[0])], "hi", dev)
+    vv13, ee13 = rx13[0][None, :, None].contiguous(), er13[0][None].contiguous()
+    stream_k_ms = cuda_ms(lambda: peel_decode_replay_cuda(pack13, vv13, ee13, budget13), 200)
+    stream_f_ms = cuda_ms(lambda: peel_decode_adaptive_cuda(decoder.code_tables(code13, dev),
+                                                            rx13[0][:, None].contiguous(),
+                                                            er13[0], budget13), 200)
+    print(f"[stream] one pattern: replay kernel {stream_k_ms:.4f} ms, cuda adaptive kernel "
+          f"{stream_f_ms:.4f} ms (CUDA events, {rounds13[0]} rounds)")
+    del out13, fl13
+
+    # ------------------------------------------- 14. replay serving at full width
+    code = codes["gaussian", 1024, 0]
+    budget14 = budget8
+    # The scheme brings no schedule cache, so each batcher keeps its own of
+    # the default size: every run serves phase 8's traffic cold, where each
+    # query brings a pattern no earlier query had.
+    scheme14 = Scheme2.build(code, mom7, lr=adaptive.lr, decode_iters=budget14,
+                             decode_backend="replay")
+    flood14 = dataclasses.replace(scheme14, decode_backend="cuda")
+
+    def serve14(sch):
+        bat = CodedQueryBatcher(sch, n_slots=B8, rounds_per_launch=budget14)
+        for i in range(nq):
+            bat.submit(CodedQuery(i, thetas[i], smasks[i]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = bat.run()
+        torch.cuda.synchronize()
+        return bat, sorted(done, key=lambda q: q.qid), time.perf_counter() - t0
+
+    reset_counts()                             # the main path's run
+    bat14, done14, _ = serve14(scheme14)
+    launches14 = read_counts("replay serving", decode_replay=bat14.launches)["decode_replay"]
+    st14 = bat14.schedule_cache.stats()
+    check(st14["capacity"] == ScheduleCache().capacity,
+          f"replay serving: the batcher's own cache {st14}")
+    serve14(flood14)                           # warm-up
+    runs14 = {"replay": [], "cuda": []}
+    for _ in range(3):                         # turns: replay, cuda, replay, cuda, ...
+        for name, sch in (("replay", scheme14), ("cuda", flood14)):
+            bat, out, secs = serve14(sch)
+            runs14[name].append(secs)
+            if name == "cuda":
+                bat_f, ref14 = bat, out
+    med14 = {n: float(np.median(t)) for n, t in runs14.items()}
+    check(bat_f.launches == bat14.launches, "replay serving: launches differ from cuda's")
+    worst14 = 0.0
+    for q, w in zip(done14, ref14):
+        check(q.qid == w.qid and all(getattr(q, f) == getattr(w, f) for f in fields),
+              f"replay serving: query {q.qid} accounting differs from cuda's")
+        g, gd = torch.from_numpy(q.gradient), torch.from_numpy(w.gradient)
+        zero = gd == 0.0
+        check(bool((g[zero] == 0.0).all()), f"replay serving: query {q.qid} zero-fill")
+        if bool(zero.all()):
+            continue
+        ex = g_exact[q.qid].cpu()
+        anchor = max(float((gd.double() - ex).abs()[~zero].max()),
+                     float((g64["lo"][q.qid].cpu() - ex).abs()[~zero].max()))
+        bound = 1e-4 * float(gd.abs().max()) + 4 * anchor
+        diff = float((g - gd).abs().max())
+        check(diff <= bound, f"replay serving: query {q.qid} gradient differs by {diff} > "
+              f"{bound}")
+        worst14 = max(worst14, diff / bound if bound > 0 else 0.0)
+    print(f"[replay-serving] {nq} queries, {B8} slots, budget {budget14}, rounds_per_launch "
+          f"{budget14}, the batcher's own cache: median of 3 cold runs {med14['replay'] * 1e3:.2f}"
+          f" ms = {nq / med14['replay']:.1f} queries/s; cuda batcher at the same chunk "
+          f"{med14['cuda'] * 1e3:.2f} ms = {nq / med14['cuda']:.1f} queries/s (host clock "
+          f"after synchronize, turns replay, cuda; runs {runs14}); {launches14} replay "
+          f"launches = batcher launches; cache {st14}; accounting identical to cuda's for all "
+          f"{nq} queries; worst gradient diff / bound {worst14:.3f}")
+    def stages14():
+        """Host clock of one cold replay-serving run by stage, each stage
+        ended by a synchronize: the schedule solves, the rest of the cache
+        lookups (the slots' masks read to the host, keys, hits), the rest of
+        the engine's decode (packs uploaded and joined, the kernel), and the
+        rest of the run (admission, worker products,
+        epilogue, SlotPool, the stats sync)."""
+        from repro_torch.core import schedule_cache as sc_mod
+        sch = dataclasses.replace(scheme14, schedule_cache=ScheduleCache())
+        acc = {}
+
+        def timed(fn, name):
+            def stage(*a, **k):
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+                acc[name] = acc.get(name, 0.0) + time.perf_counter() - t0
+                return out
+            return stage
+
+        solve = sc_mod.compile_peel_schedule
+        sc_mod.compile_peel_schedule = timed(solve, "solves")
+        try:
+            cache = sch.schedule_cache
+            object.__setattr__(cache, "get_batch", timed(cache.get_batch, "lookups"))
+            object.__setattr__(sch.engine, "decode_batch",
+                               timed(sch.engine.decode_batch, "decode"))
+            _, _, secs = serve14(sch)
+        finally:
+            sc_mod.compile_peel_schedule = solve
+        acc["decode"] -= acc["lookups"]
+        acc["lookups"] -= acc["solves"]
+        acc["rest"] = secs - sum(acc.values())
+        return acc, secs
+
+    acc14, secs14 = stages14()
+    print(f"[replay-serving] host clock by stage over one cold run ({secs14 * 1e3:.3f} ms in "
+          f"all): schedule solves {acc14['solves'] * 1e3:.3f} ms ({nq} patterns), the rest "
+          f"of the cache lookups (masks to the host, keys) {acc14['lookups'] * 1e3:.3f} ms, "
+          f"the rest of the decode (packs up and joined, kernel) "
+          f"{acc14['decode'] * 1e3:.3f} ms, the rest of the run {acc14['rest'] * 1e3:.3f} ms")
+    wall, busy, rows = device_busy(lambda: serve14(scheme14))
+    print(f"[replay-serving] torch.profiler over one cold run: device busy {busy:.3f} ms of "
+          f"{wall:.3f} ms ({100 * busy / wall:.1f}%); busiest kernels:")
+    for name, ms in rows[:4]:
+        print(f"[replay-serving]   {ms:.4f} ms  {name[:100]}")
+    # The kernel at the serving shape: the first 64 queries' erased worker
+    # products with their patterns' schedules, as the first launch sees them.
+    pack14 = decoder.replay_operands([decoder.compile_peel_schedule(code, m) for m in m8],
+                                     "lo", dev)
+    g14 = torch.full((B8,), budget14, dtype=torch.int32, device=dev)
+    kout, pout = peel_decode_replay_cuda(pack14, v8, m8, g14), replay_ref(*pack14, v8, m8, g14)
+    torch.cuda.synchronize()
+    check(all_same(kout, pout), "replay at the serving shape: kernel and plain version differ")
+    replay_ms = cuda_ms(lambda: peel_decode_replay_cuda(pack14, v8, m8, g14), 200)
+    replay_plain_ms = cuda_ms(lambda: replay_ref(*pack14, v8, m8, g14), 3)
+    E14, r14 = pack14.nidx.shape
+    replay_once = (E14 * r14 * 8 + E14 * 8 + pack14.roff.numel() * 4 + pack14.meta.numel() * 4
+                   + 2 * B8 * code.N * 4 + 2 * B8 * code.N + 8 * B8)
+    replay_bound_ms = replay_once / HBM_BYTES_PER_S * 1e3
+    err14 = float((kout[0] - pout[0]).abs().max())
+    print(f"[replay-serving] decode_replay kernel {replay_ms:.4f} ms per launch (CUDA "
+          f"events), plain version {replay_plain_ms:.4f} ms at B={B8} N={code.N} V=1, "
+          f"{E14} entries of r_max {r14}, {int(pack14.meta[:, 1].max())} rounds at most; "
+          f"bound {replay_bound_ms:.6f} ms ({replay_once} B once); max |kernel - plain| "
+          f"{err14:.3e}")
+
+    # -------------------------------- 15. the table decode past shared memory
+    t0 = time.perf_counter()
+    code15 = make_parity_only_ldpc(24576, seed=args.seed)
+    build15 = time.perf_counter() - t0
+    N15, B15, V15, D15 = code15.N, 4, 2, 8
+    tables15 = decoder.code_tables(code15, dev)
+    del code15                                 # H is 4.5 GiB on the host
+    smem15 = peel_ops._smem_bytes(N15)
+    check(smem15 > peel_ops.MAX_SMEM_BYTES, f"N={N15}: the state fits in shared memory")
+    gen15 = torch.Generator(device=dev).manual_seed(args.seed + 15)
+    idx15, w15 = tables15.check_idx, tables15.check_coeff
+    n15 = 0
+    for f in (0.25, 0.45):
+        e = torch.rand((B15, N15), generator=gen15, device=dev) < f
+        v = torch.randn((B15, N15, V15), generator=gen15, device=dev)
+        v = torch.where(e[..., None], 1e3 * v, v).contiguous()
+        budgets = torch.tensor([0, 3, D15, N15], dtype=torch.int32, device=dev)
+        for kern, plain in (
+                (lambda: peel_decode_cuda(tables15, v[1], e[1], D15),
+                 lambda: decode_table_ref(idx15, w15, v[1], e[1], D15)),
+                (lambda: peel_decode_batch_cuda(tables15, v, e, D15),
+                 lambda: decode_table_batch_ref(idx15, w15, v, e, D15)),
+                (lambda: peel_decode_adaptive_cuda(tables15, v[3], e[3], N15),
+                 lambda: decode_table_adaptive_ref(idx15, w15, v[3], e[3], N15)),
+                (lambda: peel_decode_batch_adaptive_cuda(tables15, v, e, budgets),
+                 lambda: decode_table_batch_adaptive_ref(idx15, w15, v, e, budgets))):
+            kout, pout = kern(), plain()
+            torch.cuda.synchronize()
+            check(all_same(kout, pout), f"N={N15} f={f}: table kernel and plain differ")
+            n15 += 1
+        if f == 0.25:
+            v1, e1 = v[1].contiguous(), e[1].contiguous()
+            big_table_ms = cuda_ms(lambda: peel_decode_cuda(tables15, v1, e1, D15), 20)
+            big_table_plain_ms = cuda_ms(lambda: decode_table_ref(idx15, w15, v1, e1, D15), 3)
+            resolved15 = int((e1 & ~peel_decode_cuda(tables15, v1, e1, D15)[1]).sum())
+    p15, r15 = idx15.shape
+    big_once = p15 * r15 * 8 + 2 * N15 * V15 * 4 + 2 * N15
+    print(f"[large-table] make_parity_only_ldpc(24576): N = {N15}, built in {build15:.1f} s "
+          f"(host numpy, dense H); per-block state {smem15} B > {peel_ops.MAX_SMEM_BYTES} B of "
+          f"shared memory, "
+          f"so in device memory; all four contracts at B={B15} V={V15} D={D15}, f in (0.25, "
+          f"0.45), budgets (0, 3, 8, N): {n15} cases bit-identical to the table plain version")
+    print(f"[large-table] decode_fused at N={N15} V={V15} D={D15} f=0.25 ({resolved15} "
+          f"resolved): kernel {big_table_ms:.4f} ms, plain version {big_table_plain_ms:.4f} "
+          f"ms; bound {big_once / HBM_BYTES_PER_S * 1e3:.6f} ms ({big_once} B once)")
+    del tables15
+
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     source = "src/repro_torch/kernels/ldpc_peel/csrc/peel_decode.cu"
@@ -1115,6 +1482,13 @@ def main() -> int:
         "replaces": tpu + "1316", "launches": launches11["encode_seeded_fused"],
         "max_abs_err": enc_err, "ms": enc_ms, "plain_ms": enc_plain_ms,
         "bound_ms": enc_bound_ms, "bound_by": "bytes", "library_ms": enc_lib_ms})
+    kernels.append({
+        "name": "ldpc_peel.decode_replay", "route": "cuda",
+        "source": "src/repro_torch/kernels/ldpc_peel/csrc/replay_decode.cu",
+        "replaces": tpu + "1428", "also_replaces": "src/repro/core/decoder.py:693",
+        "launches": launches14, "max_abs_err": max(err12, err14), "ms": replay_ms,
+        "plain_ms": replay_plain_ms, "bound_ms": replay_bound_ms, "bound_by": "bytes",
+        "library_ms": None})
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -58,7 +58,7 @@ class Scheme2:
     # early exit within decode_iters rounds (the decode's effort tracks the
     # stragglers); per-slot on gradient_batch
     adaptive: bool = False
-    decode_backend: str = "auto"  # dense | cuda | cuda_seeded | auto (decoder.py)
+    decode_backend: str = "auto"  # dense | cuda | cuda_seeded | replay | auto (decoder.py)
     projection: Callable[[torch.Tensor], torch.Tensor] = projections.identity
     debias: bool = False
     q0_for_debias: float = 0.1
@@ -70,6 +70,11 @@ class Scheme2:
     # (encoding.encode_seeded), which regenerates the rows from the seed:
     # no gather tables either.  Bit-identical to the table gather.
     encode_fused: bool = False
+    # decode_backend="replay" only: the cross-step LRU of compiled peeling
+    # schedules (repro_torch.core.schedule_cache.ScheduleCache), threaded
+    # into the scheme's engine so recurring straggler patterns pay the
+    # symbolic solve once.  None: each decode solves its pattern.
+    schedule_cache: object | None = None
 
     @classmethod
     def build(cls, code: LDPCCode, moments: Moments, *, lr: float, **kw) -> "Scheme2":
@@ -102,7 +107,8 @@ class Scheme2:
     def engine(self) -> CodedComputeEngine:
         return CodedComputeEngine(self.code, decode_iters=self.decode_iters,
                                   backend=self.decode_backend,
-                                  adaptive=self.adaptive)
+                                  adaptive=self.adaptive,
+                                  schedule_cache=self.schedule_cache)
 
     def worker_mask_to_erasure(self, mask: torch.Tensor) -> torch.Tensor:
         """Worker straggler mask(s) ``(..., w)`` → erasure mask(s) over the

@@ -10,9 +10,10 @@ stage    what it does
 encode   ``symbols = G @ payload`` — systematic codeword(s) of the payload.
 erase    zero the straggled coordinates (workers that did not report).
 decode   the peeling decode via :mod:`repro_torch.core.decoder` (the CUDA
-         kernel over the code's table or regenerated from its seed, or the
-         dense reference): fixed ``D`` rounds, or early exit within ``D``
-         rounds (``adaptive=True``).  The engine's ``code`` may be a
+         kernel over the code's table or regenerated from its seed, the
+         replay of pre-solved schedules, or the dense reference): fixed
+         ``D`` rounds, or early exit within ``D`` rounds
+         (``adaptive=True``).  The engine's ``code`` may be a
          structure-only :class:`repro_torch.core.ldpc.SeededLDPC`: every
          stage but ``encode`` works on it unchanged.
 epilogue zero-fill the unresolved systematic coordinates (paper Scheme 2:
@@ -35,7 +36,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.core.decoder import (DecodeResult, peel_decode,
+from repro_torch.core.decoder import (DecodeResult, ScheduleLookup, peel_decode,
                                       peel_decode_adaptive, peel_decode_batch,
                                       peel_decode_batch_adaptive, resolve_backend)
 from repro_torch.core.ldpc import LDPCCode, SeededLDPC
@@ -69,12 +70,27 @@ class CodedComputeEngine:
 
     code: LDPCCode | SeededLDPC
     decode_iters: int = 10
-    backend: str = "auto"          # dense | cuda | cuda_seeded | auto
+    backend: str = "auto"          # dense | cuda | cuda_seeded | replay | auto
     adaptive: bool = False
+    # backend="replay" only: the cross-pattern LRU of compiled peeling
+    # schedules (repro_torch.core.schedule_cache.ScheduleCache).  With a
+    # cache, recurring straggler patterns pay the symbolic solve once and
+    # every later decode is pure replay; without one the decode entry
+    # points solve per call.
+    schedule_cache: object | None = None
 
     def __post_init__(self) -> None:
         # fail fast on bad names and on backends the code cannot take
         resolve_backend(self.backend, self.code)
+
+    def _schedule_kw(self, erased: torch.Tensor, *, batch: bool) -> dict:
+        """``schedule=`` / ``schedules=`` for the replay decode, from the
+        engine's cache: the masks are read to the host once, and the decode
+        of this same ``erased`` does not compare them again on the device."""
+        if self.backend != "replay" or self.schedule_cache is None:
+            return {}
+        lookup = ScheduleLookup(self.schedule_cache, self.code, erased)
+        return {"schedules" if batch else "schedule": lookup}
 
     def encode(self, payload: torch.Tensor) -> torch.Tensor:
         """(K, ...) systematic payload → (N, ...) worker symbols (G @ m).
@@ -100,11 +116,13 @@ class CodedComputeEngine:
         """One erasure pattern; values (N,) or (N, V) (payload axis).  With
         ``adaptive``, ``decode_iters`` is the round budget of the early-exit
         decode."""
+        kw = self._schedule_kw(erased, batch=False)
         if self.adaptive:
             return peel_decode_adaptive(self.code, values, erased,
-                                        self.decode_iters, backend=self.backend)
+                                        self.decode_iters, backend=self.backend,
+                                        **kw)
         return peel_decode(self.code, values, erased, self.decode_iters,
-                           backend=self.backend)
+                           backend=self.backend, **kw)
 
     def decode_batch(self, values: torch.Tensor, erased: torch.Tensor, *,
                      adaptive: bool | None = None,
@@ -120,17 +138,18 @@ class CodedComputeEngine:
         and ``rounds_used`` is the per-slot ``(B,)`` tensor.  ``budgets``
         is only meaningful for adaptive decodes."""
         use_adaptive = self.adaptive if adaptive is None else adaptive
-        if use_adaptive:
-            return peel_decode_batch_adaptive(
-                self.code, values, erased, self.decode_iters,
-                backend=self.backend, budgets=budgets)
-        if budgets is not None:
+        if not use_adaptive and budgets is not None:
             raise ValueError(
                 "budgets= requires the adaptive batched decode (engine "
                 "adaptive=True or decode_batch(adaptive=True)); the fixed-D "
                 "path would silently ignore the per-slot round budgets")
+        kw = self._schedule_kw(erased, batch=True)
+        if use_adaptive:
+            return peel_decode_batch_adaptive(
+                self.code, values, erased, self.decode_iters,
+                backend=self.backend, budgets=budgets, **kw)
         return peel_decode_batch(self.code, values, erased, self.decode_iters,
-                                 backend=self.backend)
+                                 backend=self.backend, **kw)
 
     def systematic(self, dec: DecodeResult) -> tuple[torch.Tensor, torch.Tensor]:
         """Epilogue: zero-filled systematic part + its unresolved mask.

@@ -30,6 +30,7 @@ SOURCES = {
     "peel_decode": _PKG / "ldpc_peel" / "csrc" / "peel_decode.cu",
     "seeded_decode": _PKG / "ldpc_peel" / "csrc" / "seeded_decode.cu",
     "seeded_encode": _PKG / "ldpc_peel" / "csrc" / "seeded_encode.cu",
+    "replay_decode": _PKG / "ldpc_peel" / "csrc" / "replay_decode.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -11,8 +11,8 @@
 // computes the same function as its resident one; it exists only because
 // VMEM cannot hold a dense H past N ~ 2048.  This kernel reads the code's
 // sparse neighbour table (check_idx / check_coeff, p x r) from device
-// memory, so one kernel serves every N whose per-block state fits in
-// shared memory.  The single-pattern contracts are the B = 1 case.
+// memory, so one kernel serves every N that device memory holds.  The
+// single-pattern contracts are the B = 1 case.
 //
 // What it computes.  In each round every check row with exactly one erased
 // neighbour j proposes c_j = -(sum_known H c) / H_ij (a zero coefficient
@@ -32,11 +32,15 @@
 // payload columns of one slot and recomputes that slot's whole erasure
 // trajectory itself (it depends only on H, the slot's mask and budget), the
 // way the TPU grid over payload tiles does; blocks share nothing.  All
-// slots read the one neighbour table.  Per block, shared memory holds the
-// erasure flags (N bytes) and the winning check row per coordinate (N
-// ints): 5N bytes, so N up to ~46k.  Values live in device memory (the
-// output buffer) and the proposals in a (B, p, V) scratch buffer.  Each
-// round is four phases split by block barriers:
+// slots read the one neighbour table.  Per block, the state is the erasure
+// flags (N bytes) and the winning check row per coordinate (N ints): 5N
+// bytes.  It lives in shared memory while it fits (N up to ~46,000); past
+// that the wrapper passes a device-memory scratch of one such state per
+// block, which the kernel initialises at every launch (as seeded_decode.cu
+// does), so the table decode runs at any N.  Values live in device memory
+// (the output buffer) and the proposals in a (B, p, V) scratch buffer.
+// Each round is four phases split by block barriers (which order the
+// block's device-memory accesses as well as its shared ones):
 //   A. every check counts its erased neighbours; a solvable check bids for
 //      its coordinate with atomicMin(row) — the explicit "lo" tie-break;
 //   B. each winning check computes its proposal into scratch, reading only
@@ -78,10 +82,15 @@ peel_decode_kernel(const int* __restrict__ check_idx,
                    const unsigned char* __restrict__ erased_in,
                    const int* __restrict__ budgets, float* values_out,
                    unsigned char* erased_out, int* rounds_out, float* scratch,
-                   int N, int V, int iters) {
+                   unsigned char* state, int N, int V, int iters) {
   extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* e = smem;                                        // N flags
-  int* win = reinterpret_cast<int*>(smem + ((N + 15) & ~15));     // N rows
+  const size_t state_bytes = static_cast<size_t>((N + 15) & ~15) + 4 * static_cast<size_t>(N);
+  unsigned char* base =
+      state == nullptr
+          ? smem
+          : state + (static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) * state_bytes;
+  unsigned char* e = base;                                        // N flags
+  int* win = reinterpret_cast<int*>(base + ((N + 15) & ~15));     // N rows
 
   const int tid = threadIdx.x;
   const int b = blockIdx.y;
@@ -191,8 +200,8 @@ template <bool kAdaptive>
 int launch(const int* check_idx, const float* check_coeff, int p, int r,
            const float* values_in, const unsigned char* erased_in,
            const int* budgets, float* values_out, unsigned char* erased_out,
-           int* rounds_out, float* scratch, int B, int N, int V, int iters,
-           size_t smem, cudaStream_t stream) {
+           int* rounds_out, float* scratch, unsigned char* state, int B, int N,
+           int V, int iters, size_t smem, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         peel_decode_kernel<kAdaptive>,
@@ -202,7 +211,7 @@ int launch(const int* check_idx, const float* check_coeff, int p, int r,
   const dim3 grid((V + kCols - 1) / kCols, B);
   peel_decode_kernel<kAdaptive><<<grid, kThreads, smem, stream>>>(
       check_idx, check_coeff, p, r, values_in, erased_in, budgets, values_out,
-      erased_out, rounds_out, scratch, N, V, iters);
+      erased_out, rounds_out, scratch, state, N, V, iters);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -210,13 +219,16 @@ int launch(const int* check_idx, const float* check_coeff, int p, int r,
 
 extern "C" {
 
-// Shared memory the kernel needs for a code of length N, in bytes.
+// Per-block state of a code of length N, in bytes: erasure flags padded to
+// 16 bytes, then one int per coordinate.
 size_t peel_decode_smem_bytes(int N) {
   return static_cast<size_t>((N + 15) & ~15) + 4 * static_cast<size_t>(N);
 }
 
 // Launches the decode of B patterns on `stream`: values (B, N, V) f32,
-// erased (B, N) bytes, scratch (B, p, V) f32.  adaptive = 0: exactly
+// erased (B, N) bytes, scratch (B, p, V) f32.  `state` null: the per-block
+// state lives in shared memory; else a device buffer of
+// ceil(V / 4) * B * peel_decode_smem_bytes(N) bytes.  adaptive = 0: exactly
 // `iters` rounds (budgets and rounds_out unused).  adaptive = 1: early exit
 // under budgets (B,) int32, or `iters` for every slot where budgets is
 // null; rounds_out (B,) int32.  Returns cudaGetLastError() (0 = launched).
@@ -224,18 +236,19 @@ int peel_decode_launch(const int* check_idx, const float* check_coeff, int p,
                        int r, const float* values_in,
                        const unsigned char* erased_in, const int* budgets,
                        float* values_out, unsigned char* erased_out,
-                       int* rounds_out, float* scratch, int B, int N, int V,
-                       int iters, int adaptive, void* stream) {
-  const size_t smem = peel_decode_smem_bytes(N);
+                       int* rounds_out, float* scratch, unsigned char* state,
+                       int B, int N, int V, int iters, int adaptive,
+                       void* stream) {
+  const size_t smem = state == nullptr ? peel_decode_smem_bytes(N) : 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (adaptive) {
     return launch<true>(check_idx, check_coeff, p, r, values_in, erased_in,
                         budgets, values_out, erased_out, rounds_out, scratch,
-                        B, N, V, iters, smem, s);
+                        state, B, N, V, iters, smem, s);
   }
   return launch<false>(check_idx, check_coeff, p, r, values_in, erased_in,
-                       nullptr, values_out, erased_out, nullptr, scratch, B,
-                       N, V, iters, smem, s);
+                       nullptr, values_out, erased_out, nullptr, scratch,
+                       state, B, N, V, iters, smem, s);
 }
 
 const char* peel_decode_error_string(int code) {

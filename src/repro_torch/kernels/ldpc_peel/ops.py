@@ -17,8 +17,11 @@ wrapper                        contract (TPU kernel it replaces)
 
 All four launch the one hand-written kernel (``csrc/peel_decode.cu``).
 For tensors on a CUDA device a wrapper launches it or raises; for tensors
-on the CPU it runs the plain PyTorch version (:mod:`.ref`).  There is no
-other path: a failed build or launch is an error, never a fallback.
+on the CPU it runs the plain PyTorch version over the same table
+(:mod:`.ref`, ``decode_table*_ref``).  There is no other path: a failed
+build or launch is an error, never a fallback.  Past the shared memory a
+block may hold (N ~ 46,000) each block's state moves to device memory, so
+the decode has no limit on N but device memory.
 
 The SEEDED codes have wrappers of their own, which take the code's
 seeded structure (``repro_torch.core.ldpc.SeededStructure``) in place of a
@@ -46,6 +49,12 @@ exactly the values, of ``csrc/peel_decode.cu`` over the same code's table;
 its per-block state moves from shared to device memory past N ~ 46,000, so
 it has no limit on N.  The encode launches ``csrc/seeded_encode.cu``.
 
+The schedule REPLAY has one wrapper, :func:`peel_decode_replay_cuda`
+(``decode_replay``, and the JAX package's replay executors): B slots, each
+replaying its own packed :class:`ReplayPack` schedule under its own round
+budget, in one launch of ``csrc/replay_decode.cu``; on CPU tensors
+:func:`.ref.replay_ref`.
+
 Each wrapper's ``.launches`` counts its own kernel launches (and nothing
 else), so a run can show that it went through the kernel.
 """
@@ -55,6 +64,7 @@ import ctypes
 import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
@@ -65,7 +75,8 @@ __all__ = ["CodeTables", "peel_decode_cuda", "peel_decode_batch_cuda",
            "peel_decode_seeded_cuda", "peel_decode_batch_seeded_cuda",
            "peel_decode_adaptive_seeded_cuda",
            "peel_decode_batch_adaptive_seeded_cuda", "encode_seeded_fused_cuda",
-           "MAX_SMEM_BYTES", "MAX_SEEDED_ROW_WEIGHT", "MAX_SEEDED_LAYERS"]
+           "ReplayPack", "check_replay_host", "peel_decode_replay_cuda", "MAX_SMEM_BYTES",
+           "MAX_SEEDED_ROW_WEIGHT", "MAX_SEEDED_LAYERS"]
 
 # Dynamic shared memory a block may use on sm_90 (H100, H200).
 MAX_SMEM_BYTES = 232_448
@@ -111,8 +122,8 @@ def _lib() -> ctypes.CDLL:
     lib = _load("peel_decode")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.peel_decode_launch.argtypes = [ptr, ptr, i32, i32, ptr, ptr, ptr, ptr,
-                                       ptr, ptr, ptr, i32, i32, i32, i32, i32,
-                                       ptr]
+                                       ptr, ptr, ptr, ptr, i32, i32, i32, i32,
+                                       i32, ptr]
     lib.peel_decode_launch.restype = ctypes.c_int
     return lib
 
@@ -163,10 +174,16 @@ def _check(tables: CodeTables, values: torch.Tensor, erased: torch.Tensor,
                          f"{tuple(coeff.shape)} differ in shape")
     if idx.shape[0] < 1 or idx.shape[1] < 1:
         raise ValueError("empty code, batch or payload")
-    if _smem_bytes(N) > MAX_SMEM_BYTES:
-        raise ValueError(f"N={N} needs {_smem_bytes(N)} bytes of shared "
-                         f"memory per block; the kernel takes at most "
-                         f"{MAX_SMEM_BYTES}")
+
+
+def _state(B: int, N: int, V: int, dev: torch.device) -> torch.Tensor | None:
+    """Past the shared memory a block may hold, a device-memory scratch of
+    one ``_smem_bytes(N)`` state per block (the kernel initialises it at
+    every launch); None while the state fits in shared memory."""
+    if _smem_bytes(N) <= MAX_SMEM_BYTES:
+        return None
+    blocks = -(-V // _COLS_PER_BLOCK) * B
+    return torch.empty(blocks * _smem_bytes(N), dtype=torch.uint8, device=dev)
 
 
 def _launch(tables: CodeTables, values: torch.Tensor, erased: torch.Tensor,
@@ -174,7 +191,8 @@ def _launch(tables: CodeTables, values: torch.Tensor, erased: torch.Tensor,
             budgets: torch.Tensor | None = None):
     """Launch the kernel on ``values (B, N, V)`` / ``erased (B, N)``;
     returns ``(values, erased, rounds)`` (``rounds`` (B,) int32 for the
-    adaptive contract, else None)."""
+    adaptive contract, else None).  Past the shared memory a block may
+    hold, each block's state goes to a device-memory scratch."""
     if values.device.type != "cuda":
         raise ValueError(f"no decode for device {values.device}")
     lib = _lib()
@@ -186,6 +204,7 @@ def _launch(tables: CodeTables, values: torch.Tensor, erased: torch.Tensor,
     out_e = torch.empty_like(erased)
     rounds = torch.empty(B, dtype=torch.int32, device=dev) if adaptive else None
     scratch = torch.empty((B, p, V), dtype=torch.float32, device=dev)
+    state = _state(B, N, V, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.peel_decode_launch(
@@ -193,13 +212,10 @@ def _launch(tables: CodeTables, values: torch.Tensor, erased: torch.Tensor,
             erased.data_ptr(), None if budgets is None else budgets.data_ptr(),
             out_v.data_ptr(), out_e.data_ptr(),
             None if rounds is None else rounds.data_ptr(), scratch.data_ptr(),
-            B, N, V, iters, int(adaptive), stream)
+            None if state is None else state.data_ptr(), B, N, V, iters,
+            int(adaptive), stream)
     _raise_on(rc, lib, "peel_decode")
     return out_v, out_e, rounds
-
-
-def _dense_h(tables: CodeTables) -> torch.Tensor:
-    return ref.dense_h(tables.check_idx, tables.check_coeff, tables.N)
 
 
 def peel_decode_cuda(tables: CodeTables, values: torch.Tensor,
@@ -215,7 +231,7 @@ def peel_decode_cuda(tables: CodeTables, values: torch.Tensor,
     iters = int(iters)
     _check(tables, values, erased, iters, batched=False)
     if values.device.type == "cpu":
-        return ref.decode_fused_ref(_dense_h(tables), values, erased, iters)
+        return ref.decode_table_ref(*tables[:2], values, erased, iters)
     v, e, _ = _launch(tables, values[None], erased[None], iters,
                       adaptive=False)
     peel_decode_cuda.launches += 1
@@ -231,8 +247,7 @@ def peel_decode_batch_cuda(tables: CodeTables, values: torch.Tensor,
     iters = int(iters)
     _check(tables, values, erased, iters, batched=True)
     if values.device.type == "cpu":
-        return ref.decode_fused_batch_ref(_dense_h(tables), values, erased,
-                                          iters)
+        return ref.decode_table_batch_ref(*tables[:2], values, erased, iters)
     v, e, _ = _launch(tables, values, erased, iters, adaptive=False)
     peel_decode_batch_cuda.launches += 1
     return v, e
@@ -250,7 +265,7 @@ def peel_decode_adaptive_cuda(tables: CodeTables, values: torch.Tensor,
     max_iters = int(max_iters)
     _check(tables, values, erased, max_iters, batched=False)
     if values.device.type == "cpu":
-        return ref.decode_fused_adaptive_ref(_dense_h(tables), values, erased,
+        return ref.decode_table_adaptive_ref(*tables[:2], values, erased,
                                              max_iters)
     v, e, d = _launch(tables, values[None], erased[None], max_iters,
                       adaptive=True)
@@ -273,7 +288,7 @@ def peel_decode_batch_adaptive_cuda(tables: CodeTables, values: torch.Tensor,
     varying them syncs nothing."""
     _check(tables, values, erased, 0, batched=True, budgets=budgets)
     if values.device.type == "cpu":
-        return ref.decode_fused_batch_adaptive_ref(_dense_h(tables), values,
+        return ref.decode_table_batch_adaptive_ref(*tables[:2], values,
                                                    erased, budgets)
     v, e, d = _launch(tables, values, erased, 0, adaptive=True,
                       budgets=budgets)
@@ -343,10 +358,7 @@ def _launch_seeded(st, values: torch.Tensor, erased: torch.Tensor, iters: int,
     out_e = torch.empty_like(erased)
     rounds = torch.empty(B, dtype=torch.int32, device=dev) if adaptive else None
     scratch = torch.empty((B, st.rows, V), dtype=torch.float32, device=dev)
-    state = None
-    if _smem_bytes(N) > MAX_SMEM_BYTES:
-        blocks = -(-V // _COLS_PER_BLOCK) * B
-        state = torch.empty(blocks * _smem_bytes(N), dtype=torch.uint8, device=dev)
+    state = _state(B, N, V, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.seeded_decode_launch(
@@ -457,9 +469,143 @@ def encode_seeded_fused_cuda(st, y: torch.Tensor, row0: int = 0,
     return out
 
 
+# ------------------------------------------------------------------ replay
+
+
+class ReplayPack(NamedTuple):
+    """B packed peeling schedules, one per slot, on one device.
+
+    ``meta (B, 3)`` int32 holds each slot's ``(entries, rounds R, probe)``
+    (``probe``: the adaptive decode's round count under an unbounded
+    budget).  Slot ``b``'s entries follow those of the slots before it in
+    ``nidx (E, r_max)`` int32 (each resolving check's neighbour columns,
+    sentinel ``N``), ``w (E, r_max)`` float32 (its pre-masked weights),
+    ``coeff (E,)`` float32 (its target's coefficient) and ``tgt (E,)``
+    int32 (its target column); its ``R + 1`` local round offsets follow
+    those of the slots before it in ``roff``.  Built by
+    ``repro_torch.core.decoder`` from ``PeelSchedule``s."""
+
+    nidx: torch.Tensor
+    w: torch.Tensor
+    coeff: torch.Tensor
+    tgt: torch.Tensor
+    roff: torch.Tensor
+    meta: torch.Tensor
+
+
+def check_replay_host(nidx: np.ndarray, w: np.ndarray, coeff: np.ndarray,
+                      tgt: np.ndarray, roff: np.ndarray, meta: np.ndarray, *,
+                      N: int) -> None:
+    """Raise unless one slot's pack, on the host before its upload, is one
+    the replay kernel can walk: ``0 <= nidx <= N`` (``N`` the sentinel),
+    ``0 <= tgt < N``, ``roff`` ascending from 0 to the entry count with
+    one offset per round and one more, ``meta = [[E, R, probe]]`` with
+    ``probe <= R + 1``.  The launch itself checks only shapes and types, so
+    a pack that did not pass here may read out of bounds on the card."""
+    E = nidx.shape[0] if nidx.ndim == 2 else -1
+    if (E < 0 or w.shape != nidx.shape or coeff.shape != (E,) or tgt.shape != (E,)
+            or meta.shape != (1, 3) or roff.ndim != 1):
+        raise ValueError("replay pack shapes disagree")
+    n, R, probe = (int(x) for x in meta[0])
+    if n != E or roff.shape != (R + 1,) or not 0 <= probe <= R + 1:
+        raise ValueError(f"replay pack meta {meta[0].tolist()} disagrees with "
+                         f"{E} entries and {roff.shape[0]} round offsets")
+    if roff[0] != 0 or roff[-1] != E or (np.diff(roff) < 0).any():
+        raise ValueError("replay round offsets must ascend from 0 to the entry count")
+    if E and (nidx.min() < 0 or nidx.max() > N or tgt.min() < 0 or tgt.max() >= N):
+        raise ValueError(f"replay pack columns must lie in [0, {N}] and targets "
+                         f"in [0, {N})")
+
+
+@functools.cache
+def _replay_lib() -> ctypes.CDLL:
+    lib = _load("replay_decode")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.replay_decode_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, ptr,
+                                         ptr, ptr, i32, ptr, ptr, ptr, ptr, i32,
+                                         i32, i32, ptr]
+    lib.replay_decode_launch.restype = ctypes.c_int
+    return lib
+
+
+def _check_replay(pack: ReplayPack, values: torch.Tensor, erased: torch.Tensor,
+                  budgets) -> None:
+    nidx, w = pack.nidx, pack.w
+    _check_decode(values.shape[1] if values.ndim == 3 else 0, values, erased,
+                  budgets if isinstance(budgets, int) else 0, batched=True,
+                  budgets=None if isinstance(budgets, int) else budgets,
+                  extra=[("nidx", nidx, torch.int32, 2), ("w", w, torch.float32, 2),
+                         ("coeff", pack.coeff, torch.float32, 1),
+                         ("tgt", pack.tgt, torch.int32, 1),
+                         ("roff", pack.roff, torch.int32, 1),
+                         ("meta", pack.meta, torch.int32, 2)])
+    E = nidx.shape[0]
+    if w.shape != nidx.shape or nidx.shape[1] < 1 or pack.coeff.shape != (E,) \
+            or pack.tgt.shape != (E,):
+        raise ValueError(f"replay pack shapes disagree: nidx {tuple(nidx.shape)}, "
+                         f"w {tuple(w.shape)}, coeff {tuple(pack.coeff.shape)}, "
+                         f"tgt {tuple(pack.tgt.shape)}")
+    if tuple(pack.meta.shape) != (values.shape[0], 3):
+        raise ValueError(f"meta must be ({values.shape[0]}, 3); got "
+                         f"{tuple(pack.meta.shape)}")
+    if pack.roff.shape[0] < values.shape[0]:
+        raise ValueError("roff holds fewer than one offset per slot")
+
+
+def peel_decode_replay_cuda(pack: ReplayPack, values: torch.Tensor,
+                            erased: torch.Tensor, budgets
+                            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Replay B packed peeling schedules, one launch: slot ``b`` applies the
+    first ``min(budget_b, R_b)`` rounds of its schedule to ``values[b]``.
+
+    ``pack`` as :func:`repro_torch.core.decoder.replay_operands` builds it
+    (each slot's arrays checked by :func:`check_replay_host` before their
+    upload; here only shapes and types are checked, so the launch syncs
+    nothing).  ``values (B, N, V)`` float32 and ``erased (B, N)`` bool,
+    contiguous, on the pack's device; ``budgets`` an int for every slot, or ``(B,)`` int32
+    on that device (read there: varying it syncs nothing).  Each entry
+    gathers its neighbours, sums the products with the Neumaier chain of
+    the JAX package's ``_edge_sum`` and divides the negated sum by its
+    coefficient; the round's results then move to their targets.  The
+    duplicate-check tie-break is whatever rule the pack was built under.
+    Returns new ``(values, erased, rounds (B,) int32)``, ``rounds[b] =
+    max(0, min(budget_b, probe_b))``; the inputs are not modified.
+    Bit-identical to :func:`.ref.replay_ref`, which runs for CPU tensors.
+    """
+    if not isinstance(budgets, torch.Tensor):
+        budgets = int(budgets)
+    _check_replay(pack, values, erased, budgets)
+    if values.device.type == "cpu":
+        return ref.replay_ref(*pack, values, erased, budgets)
+    if values.device.type != "cuda":
+        raise ValueError(f"no replay for device {values.device}")
+    lib = _replay_lib()
+    B, N, V = values.shape
+    dev = values.device
+    out_v = torch.empty_like(values)
+    out_e = torch.empty_like(erased)
+    rounds = torch.empty(B, dtype=torch.int32, device=dev)
+    scratch = torch.empty((max(pack.nidx.shape[0], 1), V), dtype=torch.float32,
+                          device=dev)
+    tensor_budgets = isinstance(budgets, torch.Tensor)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.replay_decode_launch(
+            pack.nidx.data_ptr(), pack.w.data_ptr(), pack.coeff.data_ptr(),
+            pack.tgt.data_ptr(), pack.roff.data_ptr(), pack.meta.data_ptr(),
+            pack.nidx.shape[1], values.data_ptr(), erased.data_ptr(),
+            budgets.data_ptr() if tensor_budgets else None,
+            0 if tensor_budgets else budgets, out_v.data_ptr(), out_e.data_ptr(),
+            rounds.data_ptr(), scratch.data_ptr(), B, N, V, stream)
+    _raise_on(rc, lib, "replay_decode")
+    peel_decode_replay_cuda.launches += 1
+    return out_v, out_e, rounds
+
+
 for _w in (peel_decode_cuda, peel_decode_batch_cuda, peel_decode_adaptive_cuda,
            peel_decode_batch_adaptive_cuda, peel_decode_seeded_cuda,
            peel_decode_batch_seeded_cuda, peel_decode_adaptive_seeded_cuda,
-           peel_decode_batch_adaptive_seeded_cuda, encode_seeded_fused_cuda):
+           peel_decode_batch_adaptive_seeded_cuda, encode_seeded_fused_cuda,
+           peel_decode_replay_cuda):
     _w.launches = 0
 del _w

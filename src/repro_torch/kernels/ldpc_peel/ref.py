@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the flooding peeling decodes.
+"""Plain PyTorch versions of the flooding peeling decodes and of the
+schedule replay.
 
 A transcription, on a dense ``(p, N)`` H in float32, of the round the CUDA
 kernel (``csrc/peel_decode.cu``) computes.  In each round, every check with
@@ -20,16 +21,19 @@ takes a batch of patterns:
 * :func:`decode_fused_batch_adaptive_ref` — B patterns, per-slot early exit
   under per-slot budgets.
 
-These are what the kernel's wrappers run for tensors on the CPU, and what
-the kernel is held against on the card.
+:func:`table_round` is the same round as a GATHER over the code's
+neighbour table (no dense H, no ``(B, p, N)`` masks), bit-identical to
+:func:`lo_round`; ``decode_table{,_batch,_adaptive,_batch_adaptive}_ref``
+are the four contracts over it.  They are what the table kernel's
+wrappers run for tensors on the CPU, and what the kernel is held against
+on the card at any N.
 
 The SEEDED codes (``csrc/seeded_decode.cu``, ``csrc/seeded_encode.cu``)
 have no table at all: :func:`seeded_rows` regenerates the (column, weight)
 pairs of any row range from the seed, bit-identical to the NumPy
 reference ``repro_torch.core.ldpc._structure_rows_raw``.  Their plain
-versions build the sorted table of the rows they need and run a GATHER
-round over it (:func:`table_round`: no dense H, so they run at N = 262144)
-with the same "lo" tie-break and the same ascending-column sums:
+versions build the sorted table of the rows they need and run
+:func:`table_round` over it (so they run at N = 262144):
 
 * :func:`decode_seeded_ref`, :func:`decode_seeded_batch_ref`,
   :func:`decode_seeded_adaptive_ref`, :func:`decode_seeded_batch_adaptive_ref`;
@@ -38,6 +42,11 @@ with the same "lo" tie-break and the same ascending-column sums:
 
 A seeded structure ``st`` is anything with the fields of
 ``repro_torch.core.ldpc.SeededStructure``.
+
+:func:`replay_ref` is the plain version of the schedule-replay kernel
+(``csrc/replay_decode.cu``): each slot replays its own pre-solved peeling
+schedule, entry by entry, with the Neumaier-compensated edge sum of the
+JAX package's ``_edge_sum``.
 """
 from __future__ import annotations
 
@@ -50,7 +59,9 @@ __all__ = ["dense_h", "lo_round", "adaptive_loop", "decode_fused_ref",
            "decode_fused_batch_adaptive_ref", "seeded_rows", "seeded_table",
            "table_round", "decode_seeded_ref", "decode_seeded_batch_ref",
            "decode_seeded_adaptive_ref", "decode_seeded_batch_adaptive_ref",
-           "gather_encode", "generator_window", "encode_seeded_ref"]
+           "decode_table_ref", "decode_table_batch_ref", "decode_table_adaptive_ref",
+           "decode_table_batch_adaptive_ref", "fixed_loop", "gather_encode",
+           "generator_window", "encode_seeded_ref", "edge_sum", "replay_ref"]
 
 
 def dense_h(check_idx: torch.Tensor, check_coeff: torch.Tensor,
@@ -134,15 +145,31 @@ def adaptive_loop(round_fn: Callable, vals: torch.Tensor, e: torch.Tensor,
     return vals, e, d
 
 
+def fixed_loop(round_fn: Callable, values: torch.Tensor, erased: torch.Tensor,
+               iters: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exactly ``iters`` rounds of ``round_fn(vals, e)`` on copies of
+    ``values (B, N, V)`` / ``erased (B, N)``."""
+    vals, e = values.clone(), erased.clone()
+    for _ in range(int(iters)):
+        vals, e = round_fn(vals, e)
+    return vals, e
+
+
+def _one(batch_fn, values: torch.Tensor, erased: torch.Tensor, arg):
+    """A batch contract ``batch_fn(values, erased, arg)`` on one pattern."""
+    return tuple(x[0] for x in batch_fn(values[None], erased[None], arg))
+
+
+def _budgets(max_iters: int, device) -> torch.Tensor:
+    return torch.full((1,), int(max_iters), dtype=torch.int32, device=device)
+
+
 def decode_fused_batch_ref(H: torch.Tensor, values: torch.Tensor,
                            erased: torch.Tensor, iters: int
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exactly ``iters`` rounds of each of B patterns: ``values (B, N, V)``
     f32, ``erased (B, N)`` bool → ``(values, erased)``."""
-    vals, e = values.clone(), erased.clone()
-    for _ in range(int(iters)):
-        vals, e = lo_round(H, vals, e)
-    return vals, e
+    return fixed_loop(lambda v, e: lo_round(H, v, e), values, erased, iters)
 
 
 def decode_fused_ref(H: torch.Tensor, values: torch.Tensor,
@@ -154,8 +181,8 @@ def decode_fused_ref(H: torch.Tensor, values: torch.Tensor,
     ``(values (N, V), erased (N,))``; coordinates left unresolved keep their
     input values.
     """
-    v, e = decode_fused_batch_ref(H, values[None], erased[None], iters)
-    return v[0], e[0]
+    return _one(lambda v, e, n: decode_fused_batch_ref(H, v, e, n), values,
+                erased, iters)
 
 
 def decode_fused_batch_adaptive_ref(H: torch.Tensor, values: torch.Tensor,
@@ -175,11 +202,95 @@ def decode_fused_adaptive_ref(H: torch.Tensor, values: torch.Tensor,
                                          torch.Tensor]:
     """Early exit of one pattern within ``max_iters`` rounds: returns
     ``(values (N, V), erased (N,), rounds)`` with ``rounds`` 0-d int32."""
-    budgets = torch.full((1,), int(max_iters), dtype=torch.int32,
-                         device=values.device)
-    v, e, d = decode_fused_batch_adaptive_ref(H, values[None], erased[None],
-                                              budgets)
-    return v[0], e[0], d[0]
+    return _one(lambda v, e, b: decode_fused_batch_adaptive_ref(H, v, e, b),
+                values, erased, _budgets(max_iters, values.device))
+
+
+# ------------------------------------------------------------------- table
+
+
+def table_round(idx: torch.Tensor, w: torch.Tensor, vals: torch.Tensor,
+                e: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One flooding round of B patterns over a neighbour table, "lo"
+    tie-break, with no dense H.
+
+    ``idx (p, r)`` integer columns, each row's real columns in ascending
+    order and then its padding slots, which hold the sentinel ``N`` with
+    weight 0; ``w (p, r)`` their weights; ``vals (B, N, V)``, ``e (B, N)``
+    bool.  The same round as :func:`lo_round`, bit for bit: each check with
+    exactly one erased neighbour proposes ``-(Σ_known w·c) / w_erased``,
+    summed over its known neighbours in ascending column order, one
+    rounded multiply and one rounded add per term (padding slots add
+    nothing, not even a zero); the lowest proposing row wins.
+    """
+    p = idx.shape[0]
+    N = vals.shape[1]
+    idx = idx.long()
+    real = idx < N                                             # (p, r)
+    col = idx.clamp(max=N - 1)
+    eg = e[:, col] & real                                      # (B, p, r)
+    solvable = eg.sum(dim=-1) == 1                             # exact ints
+    slot = eg.to(torch.int8).argmax(dim=-1, keepdim=True)      # (B, p, 1)
+    pos = torch.gather(idx.expand(e.shape[0], -1, -1), 2, slot)[..., 0]
+    coeff = torch.gather(w.expand(e.shape[0], -1, -1), 2, slot)[..., 0]
+    sums = vals.new_zeros((vals.shape[0], p, vals.shape[2]))  # (B, p, V)
+    for s in range(idx.shape[1]):
+        add = (real[None, :, s] & ~eg[:, :, s])[..., None]
+        sums = torch.where(add, sums + w[:, s, None] * vals[:, col[:, s], :], sums)
+    new_val = -sums / torch.where(coeff == 0.0, 1.0, coeff)[..., None]
+    rows = torch.arange(p, device=idx.device).expand(e.shape[0], -1)
+    winner = torch.full((e.shape[0], N + 1), p, dtype=torch.int64,
+                        device=idx.device)
+    winner.scatter_reduce_(1, torch.where(solvable, pos, N), rows, reduce="amin")
+    winner = winner[:, :N]
+    resolved = winner < p
+    take = winner.clamp(max=p - 1)[..., None].expand_as(vals)
+    vals = torch.where(resolved[..., None], torch.gather(new_val, 1, take), vals)
+    return vals, e & ~resolved
+
+
+# The same four contracts over a code's neighbour table (``check_idx (p,
+# r)`` int, sentinel-``N`` padding; ``check_coeff (p, r)`` f32): what the
+# table kernel's wrappers run for CPU tensors, and what it is held against
+# at any N (no dense H, no (B, p, N) masks).
+
+def decode_table_batch_ref(check_idx: torch.Tensor, check_coeff: torch.Tensor,
+                           values: torch.Tensor, erased: torch.Tensor,
+                           iters: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`decode_fused_batch_ref` over the table, bit for bit."""
+    return fixed_loop(lambda v, e: table_round(check_idx, check_coeff, v, e),
+                      values, erased, iters)
+
+
+def decode_table_ref(check_idx: torch.Tensor, check_coeff: torch.Tensor,
+                     values: torch.Tensor, erased: torch.Tensor,
+                     iters: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`decode_fused_ref` over the table, bit for bit."""
+    return _one(lambda v, e, n: decode_table_batch_ref(check_idx, check_coeff,
+                                                       v, e, n),
+                values, erased, iters)
+
+
+def decode_table_batch_adaptive_ref(check_idx: torch.Tensor,
+                                    check_coeff: torch.Tensor,
+                                    values: torch.Tensor, erased: torch.Tensor,
+                                    budgets: torch.Tensor
+                                    ) -> tuple[torch.Tensor, torch.Tensor,
+                                               torch.Tensor]:
+    """:func:`decode_fused_batch_adaptive_ref` over the table, bit for bit."""
+    return adaptive_loop(lambda v, e: table_round(check_idx, check_coeff, v, e),
+                         values.clone(), erased.clone(), budgets)
+
+
+def decode_table_adaptive_ref(check_idx: torch.Tensor, check_coeff: torch.Tensor,
+                              values: torch.Tensor, erased: torch.Tensor,
+                              max_iters: int
+                              ) -> tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """:func:`decode_fused_adaptive_ref` over the table, bit for bit."""
+    return _one(lambda v, e, b: decode_table_batch_adaptive_ref(
+        check_idx, check_coeff, v, e, b), values, erased,
+        _budgets(max_iters, values.device))
 
 
 # ------------------------------------------------------------------ seeded
@@ -246,41 +357,6 @@ def seeded_table(st, lo: int, hi: int, device=None
     return cols, torch.gather(w, 1, order)
 
 
-def table_round(idx: torch.Tensor, w: torch.Tensor, vals: torch.Tensor,
-                e: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """One flooding round of B patterns over a neighbour table, "lo"
-    tie-break, with no dense H.
-
-    ``idx (p, r)`` int64 columns in ascending order per row and ``w (p,
-    r)`` their weights (no padding slots), ``vals (B, N, V)``, ``e (B, N)``
-    bool.  The same round as :func:`lo_round`: each check with exactly one
-    erased neighbour proposes ``-(Σ_known w·c) / w_erased``, summed over
-    its known neighbours in ascending column order, one rounded multiply
-    and one rounded add per term; the lowest proposing row wins.
-    """
-    p = idx.shape[0]
-    N = vals.shape[1]
-    eg = e[:, idx]                                             # (B, p, r)
-    solvable = eg.sum(dim=-1) == 1                             # exact ints
-    slot = eg.to(torch.int8).argmax(dim=-1, keepdim=True)      # (B, p, 1)
-    pos = torch.gather(idx.expand(e.shape[0], -1, -1), 2, slot)[..., 0]
-    coeff = torch.gather(w.expand(e.shape[0], -1, -1), 2, slot)[..., 0]
-    sums = vals.new_zeros((vals.shape[0], p, vals.shape[2]))  # (B, p, V)
-    for s in range(idx.shape[1]):
-        add = ~eg[:, :, s, None]
-        sums = torch.where(add, sums + w[:, s, None] * vals[:, idx[:, s], :], sums)
-    new_val = -sums / torch.where(coeff == 0.0, 1.0, coeff)[..., None]
-    rows = torch.arange(p, device=idx.device).expand(e.shape[0], -1)
-    winner = torch.full((e.shape[0], N + 1), p, dtype=torch.int64,
-                        device=idx.device)
-    winner.scatter_reduce_(1, torch.where(solvable, pos, N), rows, reduce="amin")
-    winner = winner[:, :N]
-    resolved = winner < p
-    take = winner.clamp(max=p - 1)[..., None].expand_as(vals)
-    vals = torch.where(resolved[..., None], torch.gather(new_val, 1, take), vals)
-    return vals, e & ~resolved
-
-
 def _seeded_round(st, device):
     idx, w = seeded_table(st, 0, st.rows, device)
     return lambda v, e: table_round(idx, w, v, e)
@@ -291,19 +367,15 @@ def decode_seeded_batch_ref(st, values: torch.Tensor, erased: torch.Tensor,
     """Exactly ``iters`` rounds of each of B patterns of the seeded code
     ``st`` (its ``(rows, cols)`` block is H): ``values (B, N, V)``,
     ``erased (B, N)`` → ``(values, erased)``."""
-    round_fn = _seeded_round(st, values.device)
-    vals, e = values.clone(), erased.clone()
-    for _ in range(int(iters)):
-        vals, e = round_fn(vals, e)
-    return vals, e
+    return fixed_loop(_seeded_round(st, values.device), values, erased, iters)
 
 
 def decode_seeded_ref(st, values: torch.Tensor, erased: torch.Tensor,
                       iters: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Exactly ``iters`` rounds of one pattern: ``values (N, V)``,
     ``erased (N,)``."""
-    v, e = decode_seeded_batch_ref(st, values[None], erased[None], iters)
-    return v[0], e[0]
+    return _one(lambda v, e, n: decode_seeded_batch_ref(st, v, e, n), values,
+                erased, iters)
 
 
 def decode_seeded_batch_adaptive_ref(st, values: torch.Tensor,
@@ -323,11 +395,8 @@ def decode_seeded_adaptive_ref(st, values: torch.Tensor, erased: torch.Tensor,
                                           torch.Tensor]:
     """Early exit of one pattern within ``max_iters`` rounds: returns
     ``(values (N, V), erased (N,), rounds)`` with ``rounds`` 0-d int32."""
-    budgets = torch.full((1,), int(max_iters), dtype=torch.int32,
-                         device=values.device)
-    v, e, d = decode_seeded_batch_adaptive_ref(st, values[None], erased[None],
-                                               budgets)
-    return v[0], e[0], d[0]
+    return _one(lambda v, e, b: decode_seeded_batch_adaptive_ref(st, v, e, b),
+                values, erased, _budgets(max_iters, values.device))
 
 
 def gather_encode(idx: torch.Tensor, coeff: torch.Tensor,
@@ -375,3 +444,69 @@ def encode_seeded_ref(st, y: torch.Tensor, row0: int, n_out: int) -> torch.Tenso
     :func:`gather_encode` over :func:`generator_window`."""
     idx, coeff = generator_window(st, int(row0), int(n_out), y.device)
     return gather_encode(idx, coeff, y)
+
+
+# ------------------------------------------------------------------ replay
+
+
+def edge_sum(pt: torch.Tensor) -> torch.Tensor:
+    """Neumaier-compensated sum over axis 1 of the products ``pt (n, r,
+    ...)``, in slot order, as the JAX package's ``_edge_sum`` computes it:
+    ``s = pt[:, 0]``, ``c = +0``; for each later term ``x``: ``t = s + x``,
+    ``c += (s - t) + x`` if ``|s| >= |x|`` else ``(x - t) + s``, ``s = t``;
+    the result is ``s + c``.  Every step is one rounded f32 operation."""
+    s = pt[:, 0]
+    c = torch.zeros_like(s)
+    for q in range(1, pt.shape[1]):
+        x = pt[:, q]
+        t = s + x
+        c = c + torch.where(s.abs() >= x.abs(), (s - t) + x, (x - t) + s)
+        s = t
+    return s + c
+
+
+def replay_ref(nidx: torch.Tensor, w: torch.Tensor, coeff: torch.Tensor,
+               tgt: torch.Tensor, roff: torch.Tensor, meta: torch.Tensor,
+               values: torch.Tensor, erased: torch.Tensor, budgets
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Replay B packed peeling schedules, one per slot.
+
+    Slot ``b``'s schedule is ``meta[b] = (entries, rounds R, probe)``; its
+    entries follow those of the slots before it in ``nidx (E, r_max)``
+    (neighbour columns, sentinel ``N`` reads +0), ``w (E, r_max)``
+    (pre-masked weights), ``coeff (E,)`` and ``tgt (E,)`` (target column);
+    its ``R + 1`` round offsets (local, from 0) follow those of the slots
+    before it in ``roff``.  Slot ``b`` applies its first ``min(budget,
+    R)`` rounds (none for a budget below 1): each entry gathers its
+    neighbours' current values, forms every product, sums them with
+    :func:`edge_sum` and divides the negated sum by its coefficient (1 where
+    it is 0); then all of the round's results move to their targets (a
+    target at or past ``N`` takes nothing), whose erased flags clear.
+    ``budgets`` is an int for every slot or a ``(B,)`` int tensor.
+
+    ``values (B, N, V)`` f32, ``erased (B, N)`` bool.  Returns ``(values,
+    erased, rounds (B,) int32)`` with ``rounds[b] = max(0, min(budget,
+    probe))``, the adaptive decode's round count.
+    """
+    B, N, V = values.shape
+    vals, e = values.clone(), erased.clone()
+    bud = budgets.tolist() if isinstance(budgets, torch.Tensor) else [int(budgets)] * B
+    offs = roff.tolist()
+    rounds = []
+    ebase = rbase = 0
+    for b, (n_b, R_b, probe) in enumerate(meta.tolist()):
+        v = torch.cat([vals[b], vals.new_zeros((1, V))])        # row N reads +0
+        for k in range(max(0, min(bud[b], R_b))):
+            s0, s1 = ebase + offs[rbase + k], ebase + offs[rbase + k + 1]
+            pt = v[nidx[s0:s1].long().clamp(max=N)] * w[s0:s1, :, None]
+            cf = coeff[s0:s1]
+            res = -edge_sum(pt) / torch.where(cf == 0.0, 1.0, cf)[:, None]
+            t = tgt[s0:s1].long()
+            ok = t < N
+            v[t[ok]] = res[ok]
+            e[b, t[ok]] = False
+        vals[b] = v[:N]
+        rounds.append(max(0, min(bud[b], probe)))
+        ebase += n_b
+        rbase += R_b + 1
+    return vals, e, torch.tensor(rounds, dtype=torch.int32, device=values.device)

@@ -20,7 +20,13 @@ pool of ``B`` decode slots.  Two admission policies share the pool:
     the ``(B,)`` rounds and unresolved counts and the retired slots'
     gradients.  The worker products of newly admitted slots are computed
     only on launches that admitted.  With ``backend="cuda"`` each launch is
-    ONE kernel launch, budgets a device operand.
+    ONE kernel launch, budgets a device operand.  With a scheme whose
+    ``decode_backend`` is "replay", each slot replays its admission-time
+    pattern's pre-solved schedule from a
+    :class:`~repro_torch.core.schedule_cache.ScheduleCache` (the scheme's,
+    or the batcher's own), granted its whole round budget in its admission
+    launch; each launch reads the slots' masks to the host once, for the
+    cache's keys, and is one replay-kernel launch.
 
 ``mode="lockstep"``
     The wave policy, kept as the measured baseline: queries flush in waves
@@ -41,6 +47,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from repro_torch.core.schedule_cache import ScheduleCache
 from repro_torch.serving.slot_lifecycle import SlotPool
 
 __all__ = ["CodedQuery", "CodedQueryBatcher", "MODES"]
@@ -111,13 +118,37 @@ class CodedQueryBatcher:
                                   else int(rounds_per_launch))
         if self.mode == "continuous" and self.rounds_per_launch < 1:
             raise ValueError("rounds_per_launch must be >= 1")
+        # Replay serving: each slot's decode is the straight-line replay of
+        # its pattern's compiled schedule — there is no round loop to chunk,
+        # and carrying partially-peeled state across launches would key the
+        # schedule cache on transient partial masks (correct, but every
+        # lookup a miss).  Grant the full budget per launch so every slot
+        # retires in its admission launch and the cache keys stay the
+        # admission-time straggler patterns.
+        self._replay = (mode == "continuous"
+                        and getattr(scheme, "decode_backend", "") == "replay")
+        if self._replay and self.rounds_per_launch < self.budget:
+            raise ValueError(
+                "backend='replay' serving is straight-line schedule replay: "
+                f"rounds_per_launch ({self.rounds_per_launch}) must cover "
+                f"the full budget ({self.budget}) so slots never carry "
+                "partial decode state across launches")
         self.queue: deque[CodedQuery] = deque()
         self.finished: list[CodedQuery] = []
         self.launches = 0   # batched decode launches issued
         self.device = scheme.C.device
         self._k = int(scheme.C.shape[1])
         self._N = int(scheme.w)
+        self.schedule_cache = None
         if mode == "continuous":
+            self.engine = scheme.engine
+            if self._replay:
+                if self.engine.schedule_cache is None:
+                    # the scheme brought no cache: the batcher keeps its
+                    # own, so per-slot patterns still hit across admissions
+                    self.engine = dataclasses.replace(
+                        self.engine, schedule_cache=ScheduleCache())
+                self.schedule_cache = self.engine.schedule_cache
             B = n_slots
             self.pool = SlotPool(B, self.budget, self.rounds_per_launch)
             self._theta = np.zeros((B, self._k), np.float32)
@@ -204,7 +235,7 @@ class CodedQueryBatcher:
     def _encode_fresh(self) -> None:
         """Admission-time encode: fresh slots start from their erased worker
         products; in-flight slots keep their carried partial decode state."""
-        scheme, eng = self.scheme, self.scheme.engine
+        scheme, eng = self.scheme, self.engine
         fresh = self._to_device(self._fresh)[:, None]
         Z = self._to_device(self._theta) @ scheme.C.T               # (B, N)
         erased_new = scheme.worker_mask_to_erasure(self._to_device(self._mask))
@@ -213,7 +244,7 @@ class CodedQueryBatcher:
         self._fresh[:] = False
 
     def _step_continuous(self) -> None:
-        scheme, eng = self.scheme, self.scheme.engine
+        scheme, eng = self.scheme, self.engine
         budgets = self.pool.launch_budgets()
         if self._fresh.any():
             self._encode_fresh()

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
 table decode's four contracts (fixed D and early exit, one pattern and a
-batch), the seeded decode's four, and the seeded encode.
+batch), with its state in shared or in device memory; the seeded decode's
+four; the seeded encode; and the schedule replay.
 
 These tests need a CUDA card and skip without one (the decision is taken
 inside the fixture, at run time).  They import no JAX, so they run on a
@@ -17,6 +18,11 @@ shows; see tests/test_torch_decode.py).  The seeded kernels sum in the
 plain versions' order, so they are held bit for bit: the seeded decode
 against its plain version and against the table kernel on the same code,
 the seeded encode against its plain version (compared as bit patterns).
+The replay kernel computes its plain version's Neumaier chain op for op,
+so it is held bit for bit too, with every NaN compared by position only
+(erased entries hold NaN and inf, which the replay multiplies by zero, and
+IEEE 754 leaves which input NaN an operation on two returns to the
+implementation).
 """
 import numpy as np
 import pytest
@@ -39,7 +45,8 @@ from repro_torch.kernels.ldpc_peel import (decode_fused_adaptive_ref,
                                            peel_decode_batch_adaptive_seeded_cuda,
                                            peel_decode_batch_cuda,
                                            peel_decode_batch_seeded_cuda,
-                                           peel_decode_cuda, peel_decode_seeded_cuda)
+                                           peel_decode_cuda, peel_decode_replay_cuda,
+                                           peel_decode_seeded_cuda, replay_ref)
 
 
 @pytest.fixture
@@ -422,3 +429,108 @@ def test_seeded_wrappers_count_their_own_launches(cuda):
     encoding.encode_seeded(ldgm, torch.ones(64, device=cuda))
     encoding.encode_seeded(ldgm, torch.ones(64))
     assert encode_seeded_fused_cuda.launches == n + 1
+
+
+def test_table_state_in_device_memory_equals_shared(cuda, monkeypatch):
+    code = _code("gaussian", 256)
+    tables = decoder.code_tables(code, cuda)
+    for V in (1, 6):
+        v, e = _seeded_inputs(code.N, 3, V, 0.42, 21 + V, cuda)
+        budgets = torch.tensor([2, 0, code.N], dtype=torch.int32, device=cuda)
+        runs = (lambda: peel_decode_batch_adaptive_cuda(tables, v, e, budgets),
+                lambda: peel_decode_batch_cuda(tables, v, e, 5),
+                lambda: peel_decode_cuda(tables, v[0], e[0], 5),
+                lambda: peel_decode_adaptive_cuda(tables, v[2], e[2], code.N))
+        shared = [run() for run in runs]
+        with monkeypatch.context() as m:
+            m.setattr(ops, "MAX_SMEM_BYTES", 0)           # forces the scratch state
+            scratch = [run() for run in runs]
+        torch.cuda.synchronize()
+        for a, b in zip(shared, scratch):
+            assert all(_same(x, y) if x.dtype == torch.float32 else torch.equal(x, y)
+                       for x, y in zip(a, b))
+
+
+def test_table_kernel_past_shared_memory(cuda):
+    # The (3, 6) code at K = 256 spread over N = 50,000 columns: the state
+    # no longer fits in shared memory, and the decode equals its plain
+    # version and the code's own decode.
+    code = _code("pm1", 256)
+    tables = decoder.code_tables(code, cuda)
+    N, stride = 50_000, 97
+    wide = tables._replace(check_idx=(tables.check_idx * stride).contiguous(), N=N)
+    assert ops._smem_bytes(N) > ops.MAX_SMEM_BYTES
+    values, erased, _ = _case(code, 3, 0.4, 6, 3, "pm1")
+    v = torch.zeros((N, 3), device=cuda)
+    e = torch.zeros(N, dtype=torch.bool, device=cuda)
+    v[::stride][:code.N] = torch.from_numpy(values).to(cuda)
+    e[::stride][:code.N] = torch.from_numpy(erased).to(cuda)
+    kv, ke, kd = peel_decode_adaptive_cuda(wide, v, e, 40)
+    pv, pe, pd = ops.ref.decode_table_adaptive_ref(wide.check_idx, wide.check_coeff,
+                                                   v, e, 40)
+    sv, se, sd = peel_decode_adaptive_cuda(tables, v[::stride][:code.N].contiguous(),
+                                           e[::stride][:code.N].contiguous(), 40)
+    torch.cuda.synchronize()
+    assert torch.equal(ke, pe) and _same(kv, pv) and int(kd) == int(pd) == int(sd)
+    assert torch.equal(ke[::stride][:code.N], se) and _same(kv[::stride][:code.N], sv)
+
+
+def _same_nan(a, b):
+    """Bit for bit, every NaN compared by position only."""
+    return (a.shape == b.shape and torch.equal(torch.isnan(a), torch.isnan(b))
+            and _same(torch.where(torch.isnan(a), 0.0, a), torch.where(torch.isnan(b), 0.0, b)))
+
+
+def _replay_inputs(code, B, V, f, seed, dev):
+    v, e = _seeded_inputs(code.N, B, V, f, seed, dev)
+    pos = torch.nonzero(e[0])[:2, 0]
+    v[0, pos] = torch.tensor([float("nan"), float("inf")], device=dev)[:len(pos), None]
+    return v, e
+
+
+@pytest.mark.parametrize("kind,K", [("gaussian", 20), ("gaussian", 256), ("pm1", 256)])
+@pytest.mark.parametrize("B,V", [(1, 1), (8, 5), (64, 1)])
+@pytest.mark.parametrize("f", [0.0, 0.25, 0.45])
+def test_replay_kernel_matches_plain(cuda, kind, K, B, V, f):
+    code = _code(kind, K)
+    v, e = _replay_inputs(code, B, V, f, K + B + V, cuda)
+    scheds = [decoder.compile_peel_schedule(code, e[b]) for b in range(B)]
+    budgets = torch.tensor([0, 1, 3, 8, code.N] * 13, dtype=torch.int32, device=cuda)[:B]
+    for rule in ("hi", "lo"):
+        pack = decoder.replay_operands(scheds, rule, cuda)
+        for bud in (budgets, 3, code.N):
+            kout = peel_decode_replay_cuda(pack, v, e, bud)
+            pout = replay_ref(*pack, v, e, bud)
+            torch.cuda.synchronize()
+            assert _same_nan(kout[0], pout[0])
+            assert torch.equal(kout[1], pout[1]) and torch.equal(kout[2], pout[2])
+    # the "lo" replay resolves exactly what the flooding kernel resolves,
+    # and counts the same rounds
+    tables = decoder.code_tables(code, cuda)
+    kout = peel_decode_replay_cuda(decoder.replay_operands(scheds, "lo", cuda), v, e,
+                                   budgets)
+    fout = peel_decode_batch_adaptive_cuda(tables, v, e, budgets)
+    torch.cuda.synchronize()
+    assert torch.equal(kout[1], fout[1]) and torch.equal(kout[2], fout[2])
+
+
+def test_replay_entry_points_launch_the_kernel(cuda):
+    from repro_torch.core import ScheduleCache
+    from repro_torch.core.engine import CodedComputeEngine
+    code = _code("gaussian", 256)
+    v, e = _replay_inputs(code, 4, 2, 0.3, 31, cuda)
+    before = peel_decode_replay_cuda.launches
+    decoder.peel_decode(code, v[0], e[0], 4, backend="replay")
+    decoder.peel_decode_batch(code, v, e, 4, backend="replay")
+    decoder.peel_decode_adaptive(code, v[0], e[0], 9, backend="replay")
+    res = decoder.peel_decode_batch_adaptive(code, v, e, backend="replay",
+                                             budgets=[1, 0, 3, 40])
+    decoder.peel_decode(code, v[0].cpu(), e[0].cpu(), 4, backend="replay")
+    cache = ScheduleCache()
+    eng = CodedComputeEngine(code, decode_iters=40, backend="replay", adaptive=True,
+                             schedule_cache=cache)
+    for _ in range(3):
+        eng.decode_batch(v, e)
+    assert peel_decode_replay_cuda.launches - before == 7
+    assert (cache.misses, cache.hits) == (4, 8)
+    assert res.rounds_used.device.type == "cuda" and res.rounds_used.dtype == torch.int32

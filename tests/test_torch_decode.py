@@ -35,7 +35,7 @@ from repro.core.decoder import peel_decode as jax_peel_decode
 from repro_torch.convert import code_from
 from repro_torch.core import decoder as tdec
 from repro_torch.kernels.ldpc_peel import (CodeTables, decode_fused_ref,
-                                           dense_h, peel_decode_cuda)
+                                           dense_h, ops, peel_decode_cuda)
 
 WEIGHTS = ("gaussian", "pm1")
 KS = (20, 64)                    # the (40, 20) code and N = 128
@@ -223,8 +223,19 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 
 def test_wrapper_rejects_codes_past_shared_memory():
+    # Past the shared memory a block may hold (N ~ 46,000) the wrapper used
+    # to reject the code.  The kernel now keeps its state in device memory
+    # there, so the wrapper takes any N: the (40, 20) code's table spread
+    # over N = 50,000 columns decodes as the code itself does.
     t = _tables()
-    N = 50_000
-    with pytest.raises(ValueError, match="shared"):
-        peel_decode_cuda(t._replace(N=N), torch.zeros((N, 1)),
-                         torch.zeros(N, dtype=torch.bool), 1)
+    N, stride = 50_000, 1_250
+    assert ops._smem_bytes(N) > ops.MAX_SMEM_BYTES
+    values, erased, _ = _inputs("gaussian", 20, 2, 0.3, 6)
+    wide = t._replace(check_idx=t.check_idx * stride, N=N)
+    v = torch.zeros((N, 2))
+    e = torch.zeros(N, dtype=torch.bool)
+    v[::stride], e[::stride] = torch.from_numpy(values), torch.from_numpy(erased)
+    gv, ge = peel_decode_cuda(wide, v, e, 6)
+    wv, we = peel_decode_cuda(t, torch.from_numpy(values), torch.from_numpy(erased), 6)
+    assert torch.equal(ge[::stride], we) and not ge[1::stride].any()
+    assert torch.equal(gv[::stride], wv) and not gv[1::stride].any()

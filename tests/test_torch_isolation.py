@@ -12,9 +12,9 @@ ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
 
 # A 2-step CPU slice through the port's public entry points, a tiny
-# coded-query server in both modes, and the seeded paths (Scheme 2 with
-# the seeded encode, a structure-only decode); prints the modules of JAX or
-# the JAX package that ended up loaded.
+# coded-query server in both modes and with replay, and the seeded paths
+# (Scheme 2 with the seeded encode, a structure-only decode); prints the
+# modules of JAX or the JAX package that ended up loaded.
 _SLICE = """
 import json, sys, numpy as np, torch
 from repro_torch.core import (FixedCountStragglers, Scheme2, Scheme2Blocked,
@@ -51,6 +51,16 @@ seeded = Scheme2.build_seeded(make_seeded_ldgm(20, 10, row_weight=4),
 run_pgd(seeded, torch.zeros(20), FixedCountStragglers(3), 2, generator=gen)
 dec = CodedComputeEngine(SeededLDPC(N=64, K=32, l=4, r=8), decode_iters=4).decode(
     torch.ones(64), torch.arange(64) % 5 == 0)
+from repro_torch.core import ScheduleCache
+replay = Scheme2.build(code, second_moment(small.X, small.y), lr=small.lr,
+                       decode_iters=6, decode_backend="replay",
+                       schedule_cache=ScheduleCache())
+bat = CodedQueryBatcher(replay, n_slots=2, rounds_per_launch=6)
+rng = np.random.default_rng(1)
+for i in range(3):
+    bat.submit(CodedQuery(i, rng.standard_normal(20).astype(np.float32),
+                          rng.random(40) < 0.3))
+served.append(len(bat.run()))
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "repro") or m.startswith(("jax.", "jaxlib.", "repro.")))
 print(json.dumps({"bad": bad, "errors": res.errors.tolist(), "served": served,
@@ -66,7 +76,7 @@ def test_slice_runs_without_jax_or_repro():
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["bad"] == []
     assert len(result["errors"]) == 2
-    assert result["served"] == [3, 3]
+    assert result["served"] == [3, 3, 3]
     assert result["seeded_unresolved"] == 0
 
 
@@ -74,10 +84,32 @@ def _sources():
     return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
+def _cuda_sources():
+    return sorted((ROOT / "src" / "repro_torch").rglob("csrc/*.cu*"))
+
+
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_import_of_jax_or_repro(path):
     hits = [m.group(0).strip() for m in FORBIDDEN.finditer(path.read_text())]
     assert hits == []
+
+
+@pytest.mark.parametrize("path", _cuda_sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_cuda_sources_include_only_their_own_headers(path):
+    # a CUDA source of the port includes the toolkit's and the standard
+    # headers, and its own beside it: nothing of the JAX package
+    includes = re.findall(r'^\s*#\s*include\s*[<"]([^>"]+)[>"]', path.read_text(), re.M)
+    for inc in includes:
+        assert not re.match(r"(jax|jaxlib|repro)(/|\.|$)", inc), inc
+        assert "/" not in inc and (inc.endswith(".h") or "." not in inc
+                                   or (path.parent / inc).is_file()), inc
+
+
+def test_every_cuda_source_is_built():
+    from repro_torch.kernels import build
+    sources = {p for p in _cuda_sources() if p.suffix == ".cu"}
+    assert sources == {Path(p) for p in build.SOURCES.values()}
+    assert "--use_fast_math" not in build.NVCC_FLAGS
 
 
 @pytest.mark.parametrize("line,forbidden", [

@@ -233,7 +233,7 @@ def test_engine_budgets_need_the_adaptive_decode():
     assert res.rounds_used.tolist() == [0, 0]             # nothing erased
 
 
-@pytest.mark.parametrize("backend", ["replay", "sparse", "pallas"])
+@pytest.mark.parametrize("backend", ["sparse", "pallas", "pallas_tiled"])
 def test_backends_not_ported_stay_unknown(backend):
     _, _, _, tcode = _setup()
     with pytest.raises(ValueError, match="unknown decode backend"):
