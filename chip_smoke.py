@@ -43,7 +43,9 @@ Phases, each printing its own lines:
    per-slot budgets including 0 — masks, rounds and values bit-identical to
    the plain version and to the table kernel on the same code's table; the
    seeded encode over row windows (from row 0, across K, past N),
-   bit-identical to its plain version;
+   bit-identical to its plain version; and codes past the kernels' old caps
+   of 16 (row weights 24, 40, 64 and 80, 20 and 32 layers), decode and
+   encode, bit-identical to the plain versions;
 10. Path B, the large-N seeded decode (launch/steps.py:238-255 at the
    dryrun's default K = 16384 under --seeded): N = 32768, V = 2, D = 8,
    erasure fractions {0.25, 0.45}, CodedComputeEngine(backend="auto") on
@@ -81,7 +83,27 @@ Phases, each printing its own lines:
    new pattern, as in phase 8);
 15. the table decode past shared memory: make_parity_only_ldpc(24576)
    (N = 49,152, state in device memory), all four contracts against the
-   table plain version, bit for bit; prints the kernel's ms.
+   table plain version, bit for bit; prints the kernel's ms;
+16. the flash-attention kernel against its plain version: f32 and bf16,
+   G in {1, 2, 8}, Dh in {64, 128}, prefill Sq = Sk in {17, 512, 2048}
+   causal and not, decode Sq = 1 over T in {1, 2080, 4096}, a wrapped ring
+   buffer with kv_valid; f32 within 4 units of 2^-23 max|v|, bf16 within
+   one bf16 ulp of the output beyond that.  Holds the kernel to the same
+   tolerance at Qwen3-1.7B's prefill (B = 4, 16 heads over 8 KV heads,
+   Dh = 128, S = 2048) and decode (T = 2080) shapes, and times it there
+   beside the plain version, torch's scaled_dot_product_attention (a
+   yardstick only) and the bound (the bytes, or q·kᵀ on bf16 tensor cores
+   plus p·v in f32, whichever is larger);
+17. Qwen3-1.7B at full width (configs/qwen3_1p7b.py: 28 layers, d_model
+   2048, vocab 151,936), bf16, RANDOM weights from --seed (the repository
+   holds none): prefill of 4 prompts of 2048 tokens into a cache of 2080,
+   then 32 greedy decode steps, the flash kernel launched 28 x 33 times;
+   the prefill and 4 steps again with the attention on the plain version
+   and in f32 on the same weights, the kernel's logits within 2x the plain
+   version's distance from the f32 logits plus 1e-3 max|logit|; then the
+   WaveBatcher serving 8 requests of 16-64 prompt tokens (max_new 16) on 4
+   slots.  Prints prefill and decode times and tokens/s, the kernel's share
+   of a decode step, the device's busy share and the peak memory.
 
 Then, as the last three lines: the card's name and power limit, one JSON
 object with each kernel's launches, error and times, and
@@ -92,6 +114,7 @@ beside this file, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -105,6 +128,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA's data sheet
+F32_FLOPS = 67e12                  # f32 outside the tensor cores, same sheet
+BF16_FLOPS = 989e12                # bf16 tensor cores, dense, same sheet
 
 
 def card_line() -> str:
@@ -160,10 +185,10 @@ def profile_steps(scheme, theta, masks, step_ms: float, n: int = 3) -> None:
         print(f"[profile]   {ms:.4f} ms  {name[:100]}")
 
 
-def device_busy(fn) -> tuple[float, float, list[tuple[str, float]]]:
+def device_busy(fn):
     """One call of ``fn()`` under torch.profiler: (wall ms by host clock
     after a synchronize, device-busy ms summed over kernels, [(kernel,
-    ms)] busiest first)."""
+    ms)] busiest first, the number of kernels the device ran)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -172,11 +197,12 @@ def device_busy(fn) -> tuple[float, float, list[tuple[str, float]]]:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    rows = [(ev.key, ev.self_device_time_total / 1e3) for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
-            and not ev.key.startswith("Activity Buffer")]
-    rows.sort(key=lambda kv: -kv[1])
-    return wall, sum(ms for _, ms in rows), rows
+    evs = [ev for ev in prof.key_averages()
+           if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
+           and not ev.key.startswith("Activity Buffer")]
+    rows = sorted(((ev.key, ev.self_device_time_total / 1e3) for ev in evs),
+                  key=lambda kv: -kv[1])
+    return wall, sum(ms for _, ms in rows), rows, sum(ev.count for ev in evs)
 
 
 def decode_bytes(p: int, r: int, B: int, N: int, V: int, extra: int = 0) -> int:
@@ -242,6 +268,260 @@ def values_agree(weights: str, v, e, truth, kv, ke, pv, pe, dense64) -> float:
     return err
 
 
+
+def flash_phase(dev: torch.device, seed: int) -> dict:
+    """Phase 16: the flash kernel against its plain version over the grid of
+    the module docstring, then timed at Qwen3-1.7B's prefill and decode
+    shapes.  Returns the numbers of the kernels line."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import bf16_ulp
+    gen = torch.Generator(device=dev).manual_seed(seed + 16)
+    f32_ulps = 4
+
+    def inputs(B, Sq, T, KV, G, Dh, dtype):
+        q = torch.randn((B, Sq, KV, G, Dh), generator=gen, device=dev).to(dtype)
+        k = torch.randn((B, T, KV, Dh), generator=gen, device=dev).to(dtype)
+        v = torch.randn((B, T, KV, Dh), generator=gen, device=dev).to(dtype)
+        return q, k, v
+
+    def held(got, want, v, what) -> float:
+        check(got.dtype == want.dtype == v.dtype and got.shape == want.shape,
+              f"{what}: output {got.dtype} {tuple(got.shape)}")
+        check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+        err = (got.float() - want.float()).abs()
+        f32_tol = f32_ulps * 2.0 ** -23 * float(v.float().abs().max())
+        if v.dtype == torch.bfloat16:
+            ulp = bf16_ulp(torch.maximum(got.float().abs(), want.float().abs()))
+            check(bool((err <= ulp + f32_tol).all()), f"{what}: beyond one bf16 ulp")
+        else:
+            check(float(err.max()) <= f32_tol, f"{what}: {float(err.max()):.3e} > {f32_tol:.3e}")
+        return float(err.max())
+
+    t0 = time.perf_counter()
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    n = 0
+    imax = torch.iinfo(torch.int32).max
+    for dtype in errs:
+        for G in (1, 2, 8):
+            for Dh in (64, 128):
+                for S in (17, 512, 2048):
+                    q, k, v = inputs(1, S, S, 2, G, Dh, dtype)
+                    pos = torch.arange(S, dtype=torch.int32, device=dev)
+                    for causal in (True, False):
+                        got = flash_attention_cuda(q, k, v, pos, pos, causal=causal)
+                        want = attention_ref(q, k, v, pos, pos, causal=causal)
+                        torch.cuda.synchronize()
+                        errs[dtype] = max(errs[dtype], held(
+                            got, want, v, f"prefill {dtype} G={G} Dh={Dh} S={S} "
+                            f"causal={causal}"))
+                        n += 1
+                for T in (1, 2080, 4096):
+                    q, k, v = inputs(2, 1, T, 2, G, Dh, dtype)
+                    kv_pos = torch.arange(T, dtype=torch.int32, device=dev)
+                    q_pos = torch.full((1,), T - 1, dtype=torch.int32, device=dev)
+                    cases = [(kv_pos, kv_pos <= T - 1)]
+                    if T > 1:      # a wrapped ring buffer with two empty slots
+                        ring = torch.roll(kv_pos + 7, 611).to(torch.int32)
+                        ring[[3, T // 2]] = imax
+                        cases.append((ring, ring <= T + 6))
+                    for kvp, valid in cases:
+                        qp = q_pos + (7 if kvp is not kv_pos else 0)
+                        got = flash_attention_cuda(q, k, v, qp, kvp, kv_valid=valid)
+                        want = attention_ref(q, k, v, qp, kvp, kv_valid=valid)
+                        torch.cuda.synchronize()
+                        errs[dtype] = max(errs[dtype], held(
+                            got, want, v, f"decode {dtype} G={G} Dh={Dh} T={T}"))
+                        n += 1
+    print(f"[flash] {n} cases (f32 and bf16; G in (1, 2, 8); Dh in (64, 128); prefill "
+          f"S in (17, 512, 2048) causal and not; decode T in (1, 2080, 4096); wrapped "
+          f"rings with kv_valid): max |kernel - plain| f32 {errs[torch.float32]:.3e}, bf16 "
+          f"{errs[torch.bfloat16]:.3e}, within 4 units of 2^-23 max|v| (f32) and one bf16 "
+          f"ulp beyond it (bf16) ({time.perf_counter() - t0:.1f} s)")
+
+    # Timing at Qwen3-1.7B's shapes, bf16: prefill S = 2048 and decode T = 2080,
+    # each first held against the plain version as the grid above is.
+    B, KV, G, Dh = 4, 8, 2, 128
+    H = KV * G
+    out = {"max_abs_err": max(errs.values())}
+    for shape, Sq, T in (("prefill", 2048, 2048), ("decode", 1, 2080)):
+        q, k, v = inputs(B, Sq, T, KV, G, Dh, torch.bfloat16)
+        kv_pos = torch.arange(T, dtype=torch.int32, device=dev)
+        q_pos = kv_pos[T - Sq:].contiguous()
+        valid = None if shape == "prefill" else kv_pos <= T - 1
+        kern = lambda: flash_attention_cuda(q, k, v, q_pos, kv_pos, kv_valid=valid)  # noqa: E731
+        plain = lambda: attention_ref(q, k, v, q_pos, kv_pos, kv_valid=valid)  # noqa: E731
+        qh = q.reshape(B, Sq, H, Dh).transpose(1, 2).contiguous()
+        kh, vh = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+        causal = shape == "prefill"        # decode: every key is visible
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qh, kh, vh, is_causal=causal, enable_gqa=True)
+        mine, want, ref_lib = kern(), plain(), library()
+        torch.cuda.synchronize()
+        err = held(mine, want, v, f"{shape} at Qwen3-1.7B's shapes (B={B} H={H} KV={KV} "
+                   f"Dh={Dh} Sq={Sq} T={T} bf16)")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        lib_err = float((ref_lib.transpose(1, 2).reshape(mine.shape).float()
+                         - mine.float()).abs().max())
+        check(lib_err <= 0.1 * float(mine.float().abs().max()),
+              f"{shape}: the library call computes another function ({lib_err:.3e} away)")
+        del want, ref_lib
+        ms = cuda_ms(kern, 5 if shape == "prefill" else 50)
+        plain_ms = cuda_ms(plain, 3 if shape == "prefill" else 20)
+        lib_ms = cuda_ms(library, 5 if shape == "prefill" else 50)
+        # The operations at the inputs' own rates: q·kᵀ multiplies bf16 by
+        # bf16, exact in f32, so the tensor cores' f32-accumulating rate
+        # holds; p·v multiplies the f32 weights p, so the f32 rate does.
+        pairs = int((kv_pos[None, :] <= q_pos[:, None]).sum())     # visible, per head
+        flops = 4 * B * H * Dh * pairs                 # q·kᵀ and p·v, 2 FLOP an FMA
+        nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, mine, q_pos, kv_pos))
+        nbytes += 0 if valid is None else valid.numel()
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = (flops / 2 / BF16_FLOPS + flops / 2 / F32_FLOPS) * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        print(f"[flash] {shape} B={B} H={H} KV={KV} Dh={Dh} Sq={Sq} T={T} bf16: kernel "
+              f"{ms:.4f} ms ({err:.3e} from the plain version, within the grid's tolerance), "
+              f"plain version {plain_ms:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} ms "
+              f"(enable_gqa; {lib_err:.2e} from the kernel); bound {bound_ms:.4f} ms by "
+              f"{bound_by} ({nbytes} B at 3.35 TB/s = {bytes_ms:.4f} ms; {flops} FLOP, q·kᵀ on "
+              f"bf16 tensor cores at 989 TFLOP/s and p·v in f32 at 67 TFLOP/s = {ops_ms:.4f} "
+              f"ms; all in f32 {flops / F32_FLOPS * 1e3:.4f} ms, all on bf16 tensor cores "
+              f"{flops / BF16_FLOPS * 1e3:.4f} ms)")
+        out[shape] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by}
+    return out
+
+
+def model_phase(dev: torch.device, seed: int, reset_counts, read_counts) -> dict:
+    """Phase 17: Qwen3-1.7B at full width in bf16 on random weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, plain_version
+    from repro_torch.models import Model
+    from repro_torch.serving import Request, WaveBatcher
+
+    cfg = get_config("qwen3-1.7b")
+    held_before = torch.cuda.memory_allocated()     # what earlier phases still hold
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(seed + 17))
+    torch.cuda.synchronize()
+    n_params = model.param_count()
+    print(f"[model] {cfg.name} at full width ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads, head_dim {cfg.hd}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}), {cfg.dtype}: {n_params} parameters, RANDOM "
+          f"weights from --seed (the repository holds none), built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    B, S, steps, cmp_steps = 4, 2048, 32, 4
+    g = torch.Generator(device=dev).manual_seed(seed + 170)
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=g, device=dev)
+    warm = model.init_cache(B, 64)                      # cuBLAS handles, allocator
+    wl, warm = model.prefill({"tokens": tokens[:, :32]}, warm)
+    model.decode_step(wl[:, -1].argmax(-1)[:, None], 32, warm)
+    torch.cuda.synchronize()
+    del warm, wl
+
+    torch.cuda.reset_peak_memory_stats()
+    cache = model.init_cache(B, S + steps)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill({"tokens": tokens}, cache)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    fed = [logits[:, -1].argmax(-1)[:, None]]
+    kernel_logits = [logits]
+    t0 = time.perf_counter()
+    for i in range(steps):
+        logits, cache = model.decode_step(fed[-1], S + i, cache)
+        if i < cmp_steps:
+            kernel_logits.append(logits)
+        fed.append(logits[:, -1].argmax(-1)[:, None])
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / steps
+    counts = read_counts("full-width serving", flash_call=cfg.n_layers * (1 + steps))
+    peak = torch.cuda.max_memory_allocated() - held_before
+    check(all(bool(torch.isfinite(x).all()) for x in kernel_logits), "non-finite logits")
+    print(f"[model] prefill {B} x {S} tokens: {prefill_ms:.1f} ms ({B * S / prefill_ms * 1e3:.0f} "
+          f"tokens/s); {steps} greedy decode steps: {decode_ms:.3f} ms a step "
+          f"({B / decode_ms * 1e3:.1f} tokens/s); flash kernel launches {counts['flash_call']} "
+          f"= {cfg.n_layers} x (1 + {steps}); peak device memory of the model, its cache and "
+          f"the run {peak / 2**30:.2f} GiB (host clock after a synchronize)")
+
+    # The kernel's share of a decode step and the device's busy share, over
+    # two steps that rewrite the last two positions.
+    wall, busy, rows, n_kernels = device_busy(
+        lambda: [model.decode_step(fed[i], S + i, cache) for i in (steps - 2, steps - 1)])
+    flash_dev = sum(ms for name, ms in rows if "flash_attention" in name)
+    print(f"[model] two decode steps under the profiler: {wall:.3f} ms wall, device busy "
+          f"{busy:.3f} ms ({100 * busy / wall:.1f}%), the flash kernel {flash_dev:.3f} ms "
+          f"({100 * flash_dev / max(busy, 1e-9):.1f}% of the busy time); {n_kernels // 2} "
+          f"kernels a step ({n_kernels / 2 / cfg.n_layers:.1f} a layer); busiest:")
+    for name, ms in rows[:4]:
+        print(f"[model]   {ms / 2:.4f} ms a step  {name[:90]}")
+    del cache
+
+    # The same prefill and first steps with the attention on the plain
+    # version, and in f32 on the same weights, fed the same tokens.
+    def rerun(m, route_plain: bool) -> list[torch.Tensor]:
+        c = m.init_cache(B, S + cmp_steps)
+        with (plain_version() if route_plain else contextlib.nullcontext()):
+            out, c = m.prefill({"tokens": tokens}, c)
+            outs = [out]
+            for i in range(cmp_steps):
+                out, c = m.decode_step(fed[i], S + i, c)
+                outs.append(out)
+        torch.cuda.synchronize()
+        return outs
+
+    before = flash_attention_cuda.launches
+    plain_logits = rerun(model, True)
+    check(flash_attention_cuda.launches == before, "the plain run launched the kernel")
+    m32 = Model(dataclasses.replace(cfg, dtype="float32"), device=dev)
+    m32.load_state_dict(model.state_dict())
+    f32_logits = rerun(m32, False)
+    del m32
+    scale = max(float(x.abs().max()) for x in f32_logits)
+    kd = max(float((a - b).abs().max()) for a, b in zip(kernel_logits, f32_logits))
+    pd = max(float((a - b).abs().max()) for a, b in zip(plain_logits, f32_logits))
+    tol = 2 * pd + 1e-3 * scale
+    check(kd <= tol, f"kernel logits {kd:.4e} from the f32 run, beyond 2 x {pd:.4e} + "
+          f"1e-3 x {scale:.3f}")
+    n_clear = n_same = 0
+    for a, b in zip(kernel_logits, plain_logits):
+        top2 = b[:, -1].topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > tol
+        same = a[:, -1].argmax(-1) == b[:, -1].argmax(-1)
+        check(bool(same[clear].all()), "greedy tokens of the kernel and plain runs differ "
+              "where the plain run's top-2 margin is clear")
+        n_clear += int(clear.sum())
+        n_same += int(same.sum())
+    print(f"[model] prefill and {cmp_steps} steps: max |kernel - f32| {kd:.4e}, max |plain - "
+          f"f32| {pd:.4e}, max |logit| {scale:.3f}; bound 2 x plain + 1e-3 x max|logit| = "
+          f"{tol:.4e}; greedy tokens equal in {n_same} of {B * (1 + cmp_steps)} picks "
+          f"({n_clear} with a clear margin, all equal)")
+
+    # The WaveBatcher at full width: 8 requests of 16-64 prompt tokens.
+    gh = torch.Generator().manual_seed(seed + 171)
+    wb = WaveBatcher(model, n_slots=4, max_len=128)
+    for rid in range(8):
+        L = 16 + int(torch.randint(0, 49, (1,), generator=gh))
+        wb.submit(Request(rid=rid, prompt=torch.randint(0, cfg.vocab, (L,),
+                                                        generator=gh).tolist(), max_new=16))
+    reset_counts()
+    t0 = time.perf_counter()
+    done = wb.run()
+    torch.cuda.synchronize()
+    wave_ms = (time.perf_counter() - t0) * 1e3
+    read_counts("wave batcher", flash_call=cfg.n_layers * wb.ticks)
+    check(len(done) == 8 and all(r.done and len(r.out) == 16 for r in done),
+          "the WaveBatcher left a request unfinished")
+    print(f"[model] WaveBatcher, 4 slots: 8 requests (prompts of 16-64 tokens, 16 new each) "
+          f"in {wb.ticks} ticks, {wave_ms:.1f} ms ({8 * 16 / wave_ms * 1e3:.1f} generated "
+          f"tokens/s, {wave_ms / wb.ticks:.3f} ms a tick)")
+    return {"launches": counts["flash_call"], "prefill_ms": prefill_ms,
+            "decode_ms": decode_ms}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -279,6 +559,7 @@ def main() -> int:
     from repro_torch.core import ScheduleCache
     from repro_torch.kernels.ldpc_peel import ops as peel_ops
     from repro_torch.serving import CodedQuery, CodedQueryBatcher
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
 
     wrappers = {"decode_fused": peel_decode_cuda, "decode_fused_batch": peel_decode_batch_cuda,
                 "decode_fused_adaptive": peel_decode_adaptive_cuda,
@@ -288,7 +569,8 @@ def main() -> int:
                 "decode_seeded_adaptive": peel_decode_adaptive_seeded_cuda,
                 "decode_seeded_batch_adaptive": peel_decode_batch_adaptive_seeded_cuda,
                 "encode_seeded_fused": encode_seeded_fused_cuda,
-                "decode_replay": peel_decode_replay_cuda}
+                "decode_replay": peel_decode_replay_cuda,
+                "flash_call": flash_attention_cuda}
 
     def reset_counts() -> None:
         for w in wrappers.values():
@@ -826,7 +1108,7 @@ def main() -> int:
               f"accounting identical to dense for all {nq} queries; unresolved total "
               f"{sum(q.unresolved for q in done)}; worst gradient diff / bound "
               f"{worst_ratio:.3f}")
-        wall, busy, rows = device_busy(lambda: serve(scheme8, mode))
+        wall, busy, rows, _ = device_busy(lambda: serve(scheme8, mode))
         print(f"[serving] {mode}: torch.profiler over one run: device busy {busy:.3f} ms "
               f"of {wall:.3f} ms ({100 * busy / wall:.1f}%); busiest kernels:")
         for name, ms in rows[:4]:
@@ -953,6 +1235,54 @@ def main() -> int:
     print(f"[seeded] encode_seeded_fused over row windows [0, N), [3K/4, 5K/4), "
           f"[N - 300, N + 700), V in (1, 2): {n_enc} cases bit-identical to the plain "
           f"version")
+
+    # Past the old caps of 16: each sorting-network width (32, 64) and the
+    # selection past 64, and 20 and 32 layers.
+    t0 = time.perf_counter()
+    n_wide = 0
+    for K, l, r in ((64, 20, 24), (160, 20, 40), (720, 8, 80)):
+        code = make_seeded_ldpc(K, l=l, r=r, seed=1)
+        st = decoder.seeded_spec(code)
+        check((st.row_weight, st.layers) == (r, l), f"({l}, {r}) code: {st.layers} layers")
+        tables = decoder.code_tables(code, dev)
+        for f in (0.02, 0.1, 0.3):
+            e = torch.rand((8, code.N), generator=gen9, device=dev) < f
+            v = torch.randn((8, code.N, 2), generator=gen9, device=dev)
+            v = torch.where(e[..., None], 1e3 * v, v).contiguous()
+            budgets = torch.tensor([0, 1, 3, 8, code.N, 2, 5, code.N], dtype=torch.int32,
+                                   device=dev)
+            for kern, plain, table in (
+                    (lambda: peel_decode_batch_seeded_cuda(st, v, e, 8),
+                     lambda: decode_seeded_batch_ref(st, v, e, 8),
+                     lambda: peel_decode_batch_cuda(tables, v, e, 8)),
+                    (lambda: peel_decode_batch_adaptive_seeded_cuda(st, v, e, budgets),
+                     lambda: decode_seeded_batch_adaptive_ref(st, v, e, budgets),
+                     lambda: peel_decode_batch_adaptive_cuda(tables, v, e, budgets)),
+                    (lambda: peel_decode_seeded_cuda(st, v[4], e[4], 8),
+                     lambda: decode_seeded_ref(st, v[4], e[4], 8),
+                     lambda: peel_decode_cuda(tables, v[4], e[4], 8))):
+                kout, pout, tout = kern(), plain(), table()
+                torch.cuda.synchronize()
+                check(all_same(kout, pout) and all_same(kout, tout),
+                      f"({l}, {r}) code f={f}: seeded kernel, plain version and table "
+                      f"kernel differ")
+                n_wide += 1
+    for K, p_rows, rw in ((192, 96, 24), (64, 160, 8), (128, 64, 64), (160, 40, 80)):
+        st = encoding.generator_structure_of(make_seeded_ldgm(K, p_rows, row_weight=rw,
+                                                              seed=2))
+        y = torch.randn((K, 3), generator=gen9, device=dev)
+        y[0, 0] = -0.0
+        for row0, n_out in ((0, K + p_rows), (K - 5, 40), (K + p_rows - 3, 9)):
+            got = encode_seeded_fused_cuda(st, y, row0, n_out)
+            want = encode_seeded_ref(st, y, row0, n_out)
+            torch.cuda.synchronize()
+            check(same_bits(got, want), f"encode row weight {rw}, {st.layers} layers, rows "
+                  f"[{row0}, {row0 + n_out}): kernel and plain version differ")
+            n_wide += 1
+    print(f"[seeded] past the old caps of 16: make_seeded_ldpc (l, r) in ((20, 24), (20, 40), "
+          f"(8, 80)) decodes and make_seeded_ldgm row weights (24, 8 over 20 layers, 64, 80) "
+          f"encodes: {n_wide} cases bit-identical to the plain versions and the table "
+          f"kernel ({time.perf_counter() - t0:.1f} s)")
 
     # ---------------------------------------- 10. Path B: large-N seeded decode
     N10, V10, D10, B10 = 32768, 2, 8, 8
@@ -1371,7 +1701,7 @@ def main() -> int:
           f"of the cache lookups (masks to the host, keys) {acc14['lookups'] * 1e3:.3f} ms, "
           f"the rest of the decode (packs up and joined, kernel) "
           f"{acc14['decode'] * 1e3:.3f} ms, the rest of the run {acc14['rest'] * 1e3:.3f} ms")
-    wall, busy, rows = device_busy(lambda: serve14(scheme14))
+    wall, busy, rows, _ = device_busy(lambda: serve14(scheme14))
     print(f"[replay-serving] torch.profiler over one cold run: device busy {busy:.3f} ms of "
           f"{wall:.3f} ms ({100 * busy / wall:.1f}%); busiest kernels:")
     for name, ms in rows[:4]:
@@ -1444,6 +1774,12 @@ def main() -> int:
           f"ms; bound {big_once / HBM_BYTES_PER_S * 1e3:.6f} ms ({big_once} B once)")
     del tables15
 
+    # ---------------------------------- 16. the flash kernel against its plain version
+    flash = flash_phase(dev, args.seed)
+
+    # ----------------------------------------- 17. Qwen3-1.7B at full width, bf16
+    served = model_phase(dev, args.seed, reset_counts, read_counts)
+
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     source = "src/repro_torch/kernels/ldpc_peel/csrc/peel_decode.cu"
@@ -1489,6 +1825,13 @@ def main() -> int:
         "launches": launches14, "max_abs_err": max(err12, err14), "ms": replay_ms,
         "plain_ms": replay_plain_ms, "bound_ms": replay_bound_ms, "bound_by": "bytes",
         "library_ms": None})
+    kernels.append({
+        "name": "flash_attention.flash_call", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:70",
+        "also_replaces": "src/repro/models/attention.py:29", "launches": served["launches"],
+        "max_abs_err": flash["max_abs_err"], **flash["prefill"],
+        **{f"decode_{k}": v for k, v in flash["decode"].items()}})
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,19 @@
+"""qwen3-1.7b [dense] — 28L d_model=2048 16H (GQA kv=8) d_ff=6144
+vocab=151936, qk_norm, GQA.  [hf:Qwen/Qwen3-8B family card]"""
+from repro_torch.configs.base import ArchConfig, register
+
+CONFIG = register(ArchConfig(
+    name="qwen3-1.7b",
+    family="dense",
+    n_layers=28,
+    d_model=2048,
+    n_heads=16,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=6144,
+    vocab=151936,
+    qk_norm=True,
+    qkv_bias=False,
+    rope_theta=1e6,
+    source="hf:Qwen/Qwen3-8B (qwen3 family; 1.7B variant dims)",
+))

@@ -31,6 +31,7 @@ SOURCES = {
     "seeded_decode": _PKG / "ldpc_peel" / "csrc" / "seeded_decode.cu",
     "seeded_encode": _PKG / "ldpc_peel" / "csrc" / "seeded_encode.cu",
     "replay_decode": _PKG / "ldpc_peel" / "csrc" / "replay_decode.cu",
+    "flash_attention": _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -33,7 +33,10 @@
 // past that the wrapper passes a device-memory scratch of one such state
 // per block, which the kernel initialises at every launch, so the
 // structure-only decode runs at N = 262,144 and beyond.  The layer
-// constants travel in the launch arguments (at most kMaxLayers layers).
+// constants live in a small device array, so any number of layers is
+// taken; a winning row is sorted in registers by a network of width 16,
+// 32 or 64 (the least that holds r, a template argument), and past 64 is
+// visited by selection, so any row weight is taken (seeded_rows.cuh).
 //
 // Bound on an H100 SXM (3.35 TB/s).  No table is read: the decode must
 // move the values in and out (8 B·N·V), the masks (2 B·N) and, adaptive,
@@ -57,7 +60,8 @@ __device__ __forceinline__ size_t at(int row, int col, int width) {
   return static_cast<size_t>(row) * static_cast<size_t>(width) + col;
 }
 
-template <bool kAdaptive>
+// W: the sorting network's width (0: selection), as for_sorted_row takes it.
+template <bool kAdaptive, int W>
 __global__ void __launch_bounds__(kThreads)
 seeded_decode_kernel(SeededSpec sp, const float* __restrict__ values_in,
                      const unsigned char* __restrict__ erased_in,
@@ -129,20 +133,14 @@ seeded_decode_kernel(SeededSpec sp, const float* __restrict__ values_in,
         }
       }
       if (cnt != 1 || win[pos] != i) continue;
-      int col[kMaxR];
-      float w[kMaxR];
-      seeded_sorted_row(sp, i, col, w);
       float sum = 0.0f, coeff = 0.0f;
-#pragma unroll
-      for (int s = 0; s < kMaxR; ++s) {
-        if (s >= r) break;
-        const int j = col[s];
+      for_sorted_row<W>(sp, i, [&](int j, float w) {
         if (e[j]) {
-          coeff = w[s];
+          coeff = w;
         } else {
-          sum = __fadd_rn(sum, __fmul_rn(w[s], values_out[at(j, c, V)]));
+          sum = __fadd_rn(sum, __fmul_rn(w, values_out[at(j, c, V)]));
         }
-      }
+      });
       scratch[at(i, c, V)] = __fdiv_rn(-sum, coeff == 0.0f ? 1.0f : coeff);
     }
     __syncthreads();
@@ -181,7 +179,7 @@ seeded_decode_kernel(SeededSpec sp, const float* __restrict__ values_in,
   }
 }
 
-template <bool kAdaptive>
+template <bool kAdaptive, int W>
 int launch(const SeededSpec& sp, const float* values_in,
            const unsigned char* erased_in, const int* budgets, float* values_out,
            unsigned char* erased_out, int* rounds_out, float* scratch,
@@ -189,15 +187,30 @@ int launch(const SeededSpec& sp, const float* values_in,
            cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        seeded_decode_kernel<kAdaptive>,
+        seeded_decode_kernel<kAdaptive, W>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 grid((V + kCols - 1) / kCols, B);
-  seeded_decode_kernel<kAdaptive><<<grid, kThreads, smem, stream>>>(
+  seeded_decode_kernel<kAdaptive, W><<<grid, kThreads, smem, stream>>>(
       sp, values_in, erased_in, budgets, values_out, erased_out, rounds_out,
       scratch, state, N, V, iters);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kAdaptive>
+int launch_width(const SeededSpec& sp, const float* values_in,
+                 const unsigned char* erased_in, const int* budgets,
+                 float* values_out, unsigned char* erased_out, int* rounds_out,
+                 float* scratch, unsigned char* state, int B, int N, int V,
+                 int iters, size_t smem, cudaStream_t stream) {
+  const int w = network_width(sp.r);
+  auto* go = w == 16   ? &launch<kAdaptive, 16>
+             : w == 32 ? &launch<kAdaptive, 32>
+             : w == 64 ? &launch<kAdaptive, 64>
+                       : &launch<kAdaptive, 0>;
+  return go(sp, values_in, erased_in, budgets, values_out, erased_out,
+            rounds_out, scratch, state, B, N, V, iters, smem, stream);
 }
 
 }  // namespace
@@ -211,37 +224,37 @@ size_t seeded_decode_state_bytes(int N) {
 }
 
 // Launches the decode of B patterns of the seeded code (rows x cols block,
-// row weight r, `layers` layers of rows / layers rows each, strides and
-// offsets host arrays of `layers` ints) on `stream`: values (B, N, V) f32,
-// erased (B, N) bytes, scratch (B, rows, V) f32, N == cols.  `state` null:
-// the per-block state lives in shared memory; else a device buffer of
-// ceil(V / 4) * B * seeded_decode_state_bytes(N) bytes.  adaptive = 0:
-// exactly `iters` rounds (budgets and rounds_out unused).  adaptive = 1:
-// early exit under budgets (B,) int32, or `iters` for every slot where
-// budgets is null; rounds_out (B,) int32.  Returns a CUDA error code
-// (0 = launched).
+// row weight r, `layers` layers of rows / layers rows each, `layer` a
+// device array of the layers' strides, then their offsets) on `stream`:
+// values (B, N, V) f32, erased (B, N) bytes, scratch (B, rows, V) f32,
+// N == cols.  `state` null: the per-block state lives in shared memory;
+// else a device buffer of ceil(V / 4) * B * seeded_decode_state_bytes(N)
+// bytes.  adaptive = 0: exactly `iters` rounds (budgets and rounds_out
+// unused).  adaptive = 1: early exit under budgets (B,) int32, or `iters`
+// for every slot where budgets is null; rounds_out (B,) int32.  Returns a
+// CUDA error code (0 = launched).
 int seeded_decode_launch(int rows, int cols, int r, int layers,
-                         unsigned int wseed, const int* strides,
-                         const int* offsets, const float* values_in,
+                         unsigned int wseed, const int* layer,
+                         const float* values_in,
                          const unsigned char* erased_in, const int* budgets,
                          float* values_out, unsigned char* erased_out,
                          int* rounds_out, float* scratch, unsigned char* state,
                          int B, int N, int V, int iters, int adaptive,
                          void* stream) {
   SeededSpec sp;
-  if (N != cols || !make_spec(&sp, rows, cols, r, layers, wseed, strides, offsets)) {
+  if (N != cols || !make_spec(&sp, rows, cols, r, layers, wseed, layer)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem = state == nullptr ? seeded_decode_state_bytes(N) : 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (adaptive) {
-    return launch<true>(sp, values_in, erased_in, budgets, values_out,
-                        erased_out, rounds_out, scratch, state, B, N, V, iters,
-                        smem, s);
+    return launch_width<true>(sp, values_in, erased_in, budgets, values_out,
+                              erased_out, rounds_out, scratch, state, B, N, V,
+                              iters, smem, s);
   }
-  return launch<false>(sp, values_in, erased_in, nullptr, values_out,
-                       erased_out, nullptr, scratch, state, B, N, V, iters,
-                       smem, s);
+  return launch_width<false>(sp, values_in, erased_in, nullptr, values_out,
+                             erased_out, nullptr, scratch, state, B, N, V,
+                             iters, smem, s);
 }
 
 const char* seeded_decode_error_string(int code) {

@@ -15,8 +15,9 @@
 //     turns a -0.0 into +0.0 and an inf or NaN in y[0] into NaN, exactly as
 //     the table gather does (kernel.py:1297-1311 keeps them too);
 //   - a parity row regenerates its r (column, weight) pairs from the seed
-//     and sorts them by column (seeded_rows.cuh, shared with
-//     seeded_decode.cu);
+//     and visits them by ascending column (seeded_rows.cuh, shared with
+//     seeded_decode.cu): sorted in registers up to r = 64, by selection
+//     past it, for any r;
 //   - rows at or past N = K + p run the chain with all-zero weights on
 //     column 0 (kernel.py `is_par`), which gives 0 for finite y.
 // The sum is taken in slot order: the first term a rounded product, every
@@ -40,6 +41,9 @@ namespace {
 
 constexpr int kThreads = 256;
 
+// W: the sorting network's width for the parity rows (0: selection), as
+// for_sorted_row takes it.
+template <int W>
 __global__ void __launch_bounds__(kThreads)
 seeded_encode_kernel(SeededSpec sp, const float* __restrict__ y, float* out,
                      long long row0, int n_out, int V) {
@@ -50,28 +54,29 @@ seeded_encode_kernel(SeededSpec sp, const float* __restrict__ y, float* out,
   const int K = sp.cols, r = sp.r;
   const long long N = static_cast<long long>(K) + sp.rows;
 
-  int col[kMaxR];
-  float w[kMaxR];
+  float acc = 0.0f;
+  bool first = true;
+  auto term = [&](int j, float w) {
+    const float t = __fmul_rn(w, y[static_cast<size_t>(j) * V + c]);
+    acc = first ? t : __fadd_rn(acc, t);
+    first = false;
+  };
   if (row >= K && row < N) {
-    seeded_sorted_row(sp, static_cast<int>(row - K), col, w);   // a row of P
-  } else {
-#pragma unroll
-    for (int s = 0; s < kMaxR; ++s) {      // systematic, or past N: pad terms
-      col[s] = 0;
-      w[s] = 0.0f;
-    }
-    if (row < K) {
-      col[0] = static_cast<int>(row);
-      w[0] = 1.0f;
-    }
-  }
-  float acc = __fmul_rn(w[0], y[static_cast<size_t>(col[0]) * V + c]);
-#pragma unroll
-  for (int s = 1; s < kMaxR; ++s) {
-    if (s >= r) break;
-    acc = __fadd_rn(acc, __fmul_rn(w[s], y[static_cast<size_t>(col[s]) * V + c]));
+    for_sorted_row<W>(sp, static_cast<int>(row - K), term);   // a row of P
+  } else {             // systematic (weight 1 on `row`), or past N; pad terms
+    term(row < K ? static_cast<int>(row) : 0, row < K ? 1.0f : 0.0f);
+    for (int s = 1; s < r; ++s) term(0, 0.0f);
   }
   out[static_cast<size_t>(it)] = acc;
+}
+
+template <int W>
+int launch(const SeededSpec& sp, const float* y, float* out, long long row0,
+           int n_out, int V, cudaStream_t stream) {
+  const long long total = static_cast<long long>(n_out) * V;
+  const unsigned int blocks = static_cast<unsigned int>((total + kThreads - 1) / kThreads);
+  seeded_encode_kernel<W><<<blocks, kThreads, 0, stream>>>(sp, y, out, row0, n_out, V);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -80,22 +85,24 @@ extern "C" {
 
 // Launches the encode on `stream`: out (n_out, V) f32 holds codeword rows
 // [row0, row0 + n_out) of y (cols, V) f32, for the seeded parity block of
-// `rows` x `cols` (row weight r, `layers` layers; strides and offsets host
-// arrays of `layers` ints).  Returns a CUDA error code (0 = launched).
+// `rows` x `cols` (row weight r, `layers` layers; `layer` a device array
+// of the layers' strides, then their offsets).  Returns a CUDA error code
+// (0 = launched).
 int seeded_encode_launch(int rows, int cols, int r, int layers,
-                         unsigned int wseed, const int* strides,
-                         const int* offsets, const float* y, float* out,
-                         long long row0, int n_out, int V, void* stream) {
+                         unsigned int wseed, const int* layer, const float* y,
+                         float* out, long long row0, int n_out, int V,
+                         void* stream) {
   SeededSpec sp;
   if (row0 < 0 || n_out < 1 || V < 1 ||
-      !make_spec(&sp, rows, cols, r, layers, wseed, strides, offsets)) {
+      !make_spec(&sp, rows, cols, r, layers, wseed, layer)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long total = static_cast<long long>(n_out) * V;
-  const unsigned int blocks = static_cast<unsigned int>((total + kThreads - 1) / kThreads);
-  seeded_encode_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      sp, y, out, row0, n_out, V);
-  return static_cast<int>(cudaGetLastError());
+  const int w = network_width(r);
+  auto* go = w == 16   ? &launch<16>
+             : w == 32 ? &launch<32>
+             : w == 64 ? &launch<64>
+                       : &launch<0>;
+  return go(sp, y, out, row0, n_out, V, static_cast<cudaStream_t>(stream));
 }
 
 const char* seeded_encode_error_string(int code) {

@@ -2,7 +2,8 @@
 // the counterpart of the JAX package's _mix32_jnp, _seeded_row_params and
 // _seeded_edge_weight (src/repro/kernels/ldpc_peel/kernel.py:812-856) and
 // of the NumPy reference src/repro/core/ldpc.py:528-548, bit for bit.
-// Shared by seeded_decode.cu and seeded_encode.cu.
+// Shared by seeded_decode.cu and seeded_encode.cu.  Any row weight and any
+// number of layers.
 //
 // Row i of layer t = i / rows_per_layer (local row jl) covers the columns
 // (a_t * (jl * r + s) + b_t) mod cols, s < r, computed in 64 bits; slot s
@@ -12,38 +13,43 @@
 
 #include <climits>
 
-constexpr int kMaxR = 16;
-constexpr int kMaxLayers = 16;
+// Widths of the sorting networks that hold a row in registers; a row
+// wider than the widest is visited by repeated selection (for_sorted_row).
+constexpr int kNetworkWidths[] = {16, 32, 64};
 
-// The seeded structure as launch arguments (layer constants included).
+// The seeded structure as launch arguments.  The per-layer constants live
+// in device memory: `layer` holds the `layers` strides a_t, then the
+// `layers` offsets b_t (the wrapper uploads them once per structure), so
+// neither the layer count nor the row weight has a cap.
 struct SeededSpec {
   int rows;
   int cols;
   int r;
+  int layers;
   int rows_per_layer;
   unsigned int wseed;
-  int stride[kMaxLayers];
-  int offset[kMaxLayers];
+  const int* layer;
 };
 
-// Builds the spec from host arrays of `layers` strides and offsets; false
+// Builds the spec over the device array `layer` (2 * layers ints); false
 // when the kernels cannot take it.
 inline bool make_spec(SeededSpec* sp, int rows, int cols, int r, int layers,
-                      unsigned int wseed, const int* strides, const int* offsets) {
-  if (r < 1 || r > kMaxR || layers < 1 || layers > kMaxLayers || rows % layers != 0) {
+                      unsigned int wseed, const int* layer) {
+  if (r < 1 || layers < 1 || rows < 1 || cols < 1 || rows % layers != 0 ||
+      layer == nullptr) {
     return false;
   }
-  *sp = SeededSpec{};
-  sp->rows = rows;
-  sp->cols = cols;
-  sp->r = r;
-  sp->rows_per_layer = rows / layers;
-  sp->wseed = wseed;
-  for (int t = 0; t < layers; ++t) {
-    sp->stride[t] = strides[t];
-    sp->offset[t] = offsets[t];
-  }
+  *sp = SeededSpec{rows, cols, r, layers, rows / layers, wseed, layer};
   return true;
+}
+
+// The network width a row of weight r is sorted in, or 0 past the widest
+// network (rows visited by selection).
+inline int network_width(int r) {
+  for (const int w : kNetworkWidths) {
+    if (r <= w) return w;
+  }
+  return 0;
 }
 
 __device__ __forceinline__ unsigned int mix32(unsigned int x) {
@@ -60,7 +66,8 @@ __device__ __forceinline__ int seeded_col(const SeededSpec& sp, int i, int s) {
   const int t = i / sp.rows_per_layer;
   const long long jl = i - static_cast<long long>(t) * sp.rows_per_layer;
   const long long x = jl * sp.r + s;
-  return static_cast<int>((sp.stride[t] * x + sp.offset[t]) % sp.cols);
+  const long long a = __ldg(sp.layer + t), b = __ldg(sp.layer + sp.layers + t);
+  return static_cast<int>((a * x + b) % sp.cols);
 }
 
 // Weight of slot s of row i.
@@ -73,30 +80,57 @@ __device__ __forceinline__ float seeded_weight(const SeededSpec& sp, int i, int 
   return __fmul_rn(sign, __fadd_rn(1.0f, __fmul_rn(m, 1.0f / 8388608.0f)));
 }
 
-// Row i's r (column, weight) pairs in ascending column order, as
-// seeded_check_rows sorts them (ldpc.py:551-559): an odd-even transposition
-// network over kMaxR slots (kernel.py:1289-1295), the slots past r holding
-// the column INT_MAX, so they stay at the end.  Columns within a row are
-// distinct, so any correct sort gives this order.
-__device__ __forceinline__ void seeded_sorted_row(const SeededSpec& sp, int i,
-                                                  int col[kMaxR], float w[kMaxR]) {
+// Calls visit(column, weight) for row i's r pairs in ascending column
+// order, as seeded_check_rows sorts them (ldpc.py:551-559).  Columns
+// within a row are distinct, so any correct sort gives this order.
+//   W > 0 (W >= r): the row is sorted in registers by an odd-even
+//     transposition network over W slots (kernel.py:1289-1295), the slots
+//     past r holding the column INT_MAX, so they stay at the end.
+//   W == 0 (any r): repeated selection, the least column above the last
+//     one, r times: O(r^2) regenerated columns and no storage.
+template <int W, typename Visit>
+__device__ __forceinline__ void for_sorted_row(const SeededSpec& sp, int i,
+                                               Visit&& visit) {
+  if constexpr (W > 0) {
+    int col[W];
+    float w[W];
 #pragma unroll
-  for (int s = 0; s < kMaxR; ++s) {
-    col[s] = s < sp.r ? seeded_col(sp, i, s) : INT_MAX;
-    w[s] = s < sp.r ? seeded_weight(sp, i, s) : 0.0f;
-  }
+    for (int s = 0; s < W; ++s) {
+      col[s] = s < sp.r ? seeded_col(sp, i, s) : INT_MAX;
+      w[s] = s < sp.r ? seeded_weight(sp, i, s) : 0.0f;
+    }
 #pragma unroll
-  for (int pass = 0; pass < kMaxR; ++pass) {
+    for (int pass = 0; pass < W; ++pass) {
 #pragma unroll
-    for (int q = pass % 2; q + 1 < kMaxR; q += 2) {
-      if (col[q] > col[q + 1]) {
-        const int tc = col[q];
-        col[q] = col[q + 1];
-        col[q + 1] = tc;
-        const float tw = w[q];
-        w[q] = w[q + 1];
-        w[q + 1] = tw;
+      for (int q = pass % 2; q + 1 < W; q += 2) {
+        if (col[q] > col[q + 1]) {
+          const int tc = col[q];
+          col[q] = col[q + 1];
+          col[q + 1] = tc;
+          const float tw = w[q];
+          w[q] = w[q + 1];
+          w[q + 1] = tw;
+        }
       }
+    }
+#pragma unroll
+    for (int s = 0; s < W; ++s) {
+      if (s >= sp.r) break;
+      visit(col[s], w[s]);
+    }
+  } else {
+    int prev = -1;
+    for (int k = 0; k < sp.r; ++k) {
+      int best = INT_MAX, best_s = 0;
+      for (int s = 0; s < sp.r; ++s) {
+        const int c = seeded_col(sp, i, s);
+        if (c > prev && c < best) {
+          best = c;
+          best_s = s;
+        }
+      }
+      visit(best, seeded_weight(sp, i, best_s));
+      prev = best;
     }
   }
 }

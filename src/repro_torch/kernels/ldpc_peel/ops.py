@@ -75,15 +75,10 @@ __all__ = ["CodeTables", "peel_decode_cuda", "peel_decode_batch_cuda",
            "peel_decode_seeded_cuda", "peel_decode_batch_seeded_cuda",
            "peel_decode_adaptive_seeded_cuda",
            "peel_decode_batch_adaptive_seeded_cuda", "encode_seeded_fused_cuda",
-           "ReplayPack", "check_replay_host", "peel_decode_replay_cuda", "MAX_SMEM_BYTES",
-           "MAX_SEEDED_ROW_WEIGHT", "MAX_SEEDED_LAYERS"]
+           "ReplayPack", "check_replay_host", "peel_decode_replay_cuda", "MAX_SMEM_BYTES"]
 
 # Dynamic shared memory a block may use on sm_90 (H100, H200).
 MAX_SMEM_BYTES = 232_448
-# Row weight and layer count the seeded kernels take (kMaxR, kMaxLayers in
-# csrc/seeded_rows.cuh).
-MAX_SEEDED_ROW_WEIGHT = 16
-MAX_SEEDED_LAYERS = 16
 # Payload columns one decode block owns (kCols in the decode kernels).
 _COLS_PER_BLOCK = 4
 
@@ -299,28 +294,37 @@ def peel_decode_batch_adaptive_cuda(tables: CodeTables, values: torch.Tensor,
 # ------------------------------------------------------------------ seeded
 
 
-def _spec_args(st) -> tuple:
+@functools.lru_cache(maxsize=64)
+def _layer_consts(st, dev: torch.device) -> torch.Tensor:
+    """The structure's per-layer constants on ``dev``, uploaded once per
+    structure: ``layers`` strides, then ``layers`` offsets, int32."""
+    return torch.tensor([*st.strides, *st.offsets], dtype=torch.int32, device=dev)
+
+
+def _spec_args(st, dev: torch.device) -> tuple:
     """The seeded structure as the kernels' launch arguments."""
-    layer_ints = ctypes.c_int * st.layers
     return (st.rows, st.cols, st.row_weight, st.layers, st.wseed,
-            layer_ints(*st.strides), layer_ints(*st.offsets))
+            _layer_consts(st, dev).data_ptr())
 
 
 def _check_spec(st) -> None:
-    if not 1 <= st.row_weight <= MAX_SEEDED_ROW_WEIGHT:
-        raise ValueError(f"row weight {st.row_weight} outside the seeded "
-                         f"kernels' 1..{MAX_SEEDED_ROW_WEIGHT}")
-    if not 1 <= st.layers <= MAX_SEEDED_LAYERS:
-        raise ValueError(f"{st.layers} layers outside the seeded kernels' "
-                         f"1..{MAX_SEEDED_LAYERS}")
+    """Any row weight and any number of whole layers: the kernels sort a
+    row in registers up to row weight 64 and by selection past it, and read
+    the layer constants from device memory."""
+    if st.row_weight < 1:
+        raise ValueError(f"row weight must be >= 1; got {st.row_weight}")
+    if st.layers < 1 or st.rows % st.layers != 0 or \
+            len(st.strides) != st.layers or len(st.offsets) != st.layers:
+        raise ValueError(f"{st.layers} layers do not split {st.rows} rows with "
+                         f"{len(st.strides)} strides and {len(st.offsets)} offsets")
 
 
 @functools.cache
 def _decode_lib() -> ctypes.CDLL:
     lib = _load("seeded_decode")
-    ptr, i32, ints = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
-    lib.seeded_decode_launch.argtypes = [i32, i32, i32, i32, ctypes.c_uint, ints,
-                                         ints, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.seeded_decode_launch.argtypes = [i32, i32, i32, i32, ctypes.c_uint, ptr,
+                                         ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                                          ptr, i32, i32, i32, i32, i32, ptr]
     lib.seeded_decode_launch.restype = ctypes.c_int
     return lib
@@ -329,10 +333,10 @@ def _decode_lib() -> ctypes.CDLL:
 @functools.cache
 def _encode_lib() -> ctypes.CDLL:
     lib = _load("seeded_encode")
-    ptr, i32, ints = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
-    lib.seeded_encode_launch.argtypes = [i32, i32, i32, i32, ctypes.c_uint, ints,
-                                         ints, ptr, ptr, ctypes.c_longlong, i32,
-                                         i32, ptr]
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.seeded_encode_launch.argtypes = [i32, i32, i32, i32, ctypes.c_uint, ptr,
+                                         ptr, ptr, ctypes.c_longlong, i32, i32,
+                                         ptr]
     lib.seeded_encode_launch.restype = ctypes.c_int
     return lib
 
@@ -362,7 +366,7 @@ def _launch_seeded(st, values: torch.Tensor, erased: torch.Tensor, iters: int,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.seeded_decode_launch(
-            *_spec_args(st), values.data_ptr(), erased.data_ptr(),
+            *_spec_args(st, dev), values.data_ptr(), erased.data_ptr(),
             None if budgets is None else budgets.data_ptr(), out_v.data_ptr(),
             out_e.data_ptr(), None if rounds is None else rounds.data_ptr(),
             scratch.data_ptr(), None if state is None else state.data_ptr(),
@@ -462,7 +466,8 @@ def encode_seeded_fused_cuda(st, y: torch.Tensor, row0: int = 0,
     out = torch.empty((n_out, y.shape[1]), dtype=torch.float32, device=y.device)
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
-        rc = lib.seeded_encode_launch(*_spec_args(st), y.data_ptr(), out.data_ptr(),
+        rc = lib.seeded_encode_launch(*_spec_args(st, y.device), y.data_ptr(),
+                                      out.data_ptr(),
                                       row0, n_out, y.shape[1], stream)
     _raise_on(rc, lib, "seeded_encode")
     encode_seeded_fused_cuda.launches += 1

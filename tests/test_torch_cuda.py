@@ -534,3 +534,175 @@ def test_replay_entry_points_launch_the_kernel(cuda):
     assert peel_decode_replay_cuda.launches - before == 7
     assert (cache.misses, cache.hits) == (4, 8)
     assert res.rounds_used.device.type == "cuda" and res.rounds_used.dtype == torch.int32
+
+
+# ------------------------------------------ seeded kernels past the old caps
+# Row weight and layer count were once capped at 16.  Each network width
+# (16, 32, 64) and the selection path past 64 are held bit for bit.
+
+WIDE_LDPC = {"l20_r24": (64, 20, 24), "l20_r40": (160, 20, 40), "l8_r80": (720, 8, 80)}
+WIDE_LDGM = {"r24": (192, 96, 24), "layers20": (64, 160, 8), "r64": (128, 64, 64),
+             "r80": (160, 40, 80)}
+
+
+@pytest.mark.parametrize("name", list(WIDE_LDPC))
+def test_seeded_decode_past_the_old_caps(cuda, name):
+    K, l, r = WIDE_LDPC[name]
+    code = make_seeded_ldpc(K, l=l, r=r, seed=1)
+    st = decoder.seeded_spec(code)
+    assert (st.row_weight, st.layers) == (r, l)
+    tables = decoder.code_tables(code, cuda)
+    resolved = False
+    for f in (0.02, 0.1, 0.3):
+        v, e = _seeded_inputs(code.N, 4, 2, f, K + r, cuda)
+        budgets = torch.tensor([0, 1, 3, code.N], dtype=torch.int32, device=cuda)
+        for kern, plain, table in (
+                (lambda: peel_decode_batch_seeded_cuda(st, v, e, 8),
+                 lambda: decode_seeded_batch_ref(st, v, e, 8),
+                 lambda: peel_decode_batch_cuda(tables, v, e, 8)),
+                (lambda: peel_decode_batch_adaptive_seeded_cuda(st, v, e, budgets),
+                 lambda: decode_seeded_batch_adaptive_ref(st, v, e, budgets),
+                 lambda: peel_decode_batch_adaptive_cuda(tables, v, e, budgets))):
+            kout, pout, tout = kern(), plain(), table()
+            torch.cuda.synchronize()
+            for k, p, t in zip(kout, pout, tout):
+                assert torch.equal(k, p) and torch.equal(k, t)
+            assert _same(kout[0], pout[0]) and _same(kout[0], tout[0])
+            resolved |= bool((e & ~kout[1]).any())
+    assert resolved
+
+
+@pytest.mark.parametrize("name", list(WIDE_LDGM))
+def test_seeded_encode_past_the_old_caps(cuda, name):
+    K, p, rw = WIDE_LDGM[name]
+    code = make_seeded_ldgm(K, p, row_weight=rw, seed=2)
+    st = encoding.generator_structure_of(code)
+    assert st.row_weight == rw and st.layers == p * rw // K
+    y = torch.randn((K, 3), generator=torch.Generator(device=cuda).manual_seed(rw),
+                    device=cuda)
+    y[0, 0] = -0.0
+    for row0, n in ((0, code.N), (K - 5, 40), (code.N - 3, 9)):
+        got = encode_seeded_fused_cuda(st, y, row0, n)
+        want = encode_seeded_ref(st, y, row0, n)
+        torch.cuda.synchronize()
+        assert _same(got, want)
+
+
+# ------------------------------------------------------ flash attention
+# The kernel against its plain version (kernels/flash_attention/ref.py),
+# on the same inputs.  Both compute in f32 from the same rounded inputs; the
+# kernel's online softmax and the plain version's full softmax sum in other
+# orders, so f32 outputs agree to FLASH_F32_ULPS units of 2⁻²³·max|v|, and
+# bf16 outputs, each rounded once from f32, to one bf16 ulp of the output
+# beyond that f32 bound.
+
+from repro_torch.kernels.flash_attention import attention_ref, flash_attention_cuda  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import bf16_ulp  # noqa: E402
+
+FLASH_F32_ULPS = 4
+
+
+def _flash_inputs(B, Sq, T, KV, G, Dh, dtype, seed, dev):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, Sq, KV, G, Dh), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, T, KV, Dh), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, T, KV, Dh), generator=g, device=dev).to(dtype)
+    return q, k, v
+
+
+def _flash_close(got, want, v):
+    assert got.dtype == want.dtype == v.dtype and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    err = (got.float() - want.float()).abs()
+    f32_tol = FLASH_F32_ULPS * 2.0 ** -23 * float(v.float().abs().max())
+    if v.dtype == torch.bfloat16:
+        ulp = bf16_ulp(torch.maximum(got.float().abs(), want.float().abs()))
+        assert bool((err <= ulp + f32_tol).all())
+    else:
+        assert float(err.max()) <= f32_tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("G", [1, 2, 8])
+@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("S", [17, 100])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_prefill_matches_plain(cuda, dtype, G, Dh, S, causal):
+    q, k, v = _flash_inputs(2, S, S, 2, G, Dh, dtype, S + G + Dh, cuda)
+    pos = torch.arange(S, dtype=torch.int32, device=cuda)
+    got = flash_attention_cuda(q, k, v, pos, pos, causal=causal)
+    want = attention_ref(q, k, v, pos, pos, causal=causal)
+    torch.cuda.synchronize()
+    _flash_close(got, want, v)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("T", [1, 33, 2080])
+def test_flash_decode_and_ring_match_plain(cuda, dtype, T):
+    q, k, v = _flash_inputs(3, 1, T, 4, 2, 128, dtype, T, cuda)
+    p = T - 1
+    kv_pos = torch.arange(T, dtype=torch.int32, device=cuda)
+    cases = [(kv_pos, kv_pos <= p)]
+    if T > 8:            # a wrapped ring: slots hold p-T+1..p, two of them empty
+        ring = (torch.arange(T, device=cuda) + (p - T + 1)).to(torch.int32)
+        ring = torch.roll(ring, 5)
+        ring[T // 2] = torch.iinfo(torch.int32).max
+        ring[T // 3] = torch.iinfo(torch.int32).max
+        cases.append((ring, ring <= p))
+    q_pos = torch.full((1,), p, dtype=torch.int32, device=cuda)
+    for kvp, valid in cases:
+        got = flash_attention_cuda(q, k, v, q_pos, kvp, causal=True, kv_valid=valid)
+        want = attention_ref(q, k, v, q_pos, kvp, causal=True, kv_valid=valid)
+        torch.cuda.synchronize()
+        _flash_close(got, want, v)
+
+
+def test_flash_rows_with_every_key_masked_stay_finite(cuda):
+    # Queries at positions before every key: no key is visible.  The finite
+    # mask value makes each such row the mean of v, as a full softmax does.
+    q, k, v = _flash_inputs(1, 5, 70, 1, 2, 64, torch.float32, 3, cuda)
+    q_pos = torch.tensor([-3, -2, -1, 40, 69], dtype=torch.int32, device=cuda)
+    kv_pos = torch.arange(70, dtype=torch.int32, device=cuda)
+    got = flash_attention_cuda(q, k, v, q_pos, kv_pos, causal=True)
+    want = attention_ref(q, k, v, q_pos, kv_pos, causal=True)
+    torch.cuda.synchronize()
+    _flash_close(got, want, v)
+    assert torch.allclose(got[0, 0, 0, 0], v[0, :, 0].mean(0), atol=1e-5)
+
+
+def test_flash_wrapper_counts_and_rejects(cuda):
+    q, k, v = _flash_inputs(1, 4, 4, 1, 2, 64, torch.float32, 4, cuda)
+    pos = torch.arange(4, dtype=torch.int32, device=cuda)
+    before = flash_attention_cuda.launches
+    flash_attention_cuda(q, k, v, pos, pos)
+    flash_attention_cuda(q.cpu(), k.cpu(), v.cpu(), pos.cpu(), pos.cpu())
+    assert flash_attention_cuda.launches - before == 1
+    for bad in (lambda: flash_attention_cuda(q.half(), k.half(), v.half(), pos, pos),
+                lambda: flash_attention_cuda(q.double(), k.double(), v.double(), pos, pos),
+                lambda: flash_attention_cuda(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                                             v[..., :32].contiguous(), pos, pos),
+                lambda: flash_attention_cuda(q, k, v, pos.long(), pos),
+                lambda: flash_attention_cuda(q, k.cpu(), v, pos, pos)):
+        with pytest.raises(ValueError):
+            bad()
+
+
+def test_reduced_model_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = get_config("qwen3-1.7b").reduced()
+    cpu = Model(cfg, attn_chunk=8, device="cpu").init(torch.Generator().manual_seed(0))
+    gpu = Model(cfg, attn_chunk=8, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    toks = torch.randint(0, cfg.vocab, (2, 11), generator=torch.Generator().manual_seed(1))
+    caches = [m.init_cache(2, 20) for m in (cpu, gpu)]
+    before = flash_attention_cuda.launches
+    (lc, _), (lg, _) = (m.prefill({"tokens": toks}, c) for m, c in zip((cpu, gpu), caches))
+    tok = lc[:, -1].argmax(-1)[:, None]
+    for i in range(3):
+        assert float((lg.cpu() - lc).abs().max()) <= 1e-4 * float(lc.abs().max())
+        (lc, _), (lg, _) = (m.decode_step(tok, 11 + i, c) for m, c in zip((cpu, gpu), caches))
+        tok = lc[:, -1].argmax(-1)[:, None]
+    assert flash_attention_cuda.launches - before == cfg.n_layers * 4
+    for c_cpu, c_gpu in zip(*caches):
+        assert torch.equal(c_cpu["pos"], c_gpu["pos"].cpu())

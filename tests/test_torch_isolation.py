@@ -12,9 +12,10 @@ ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
 
 # A 2-step CPU slice through the port's public entry points, a tiny
-# coded-query server in both modes and with replay, and the seeded paths
-# (Scheme 2 with the seeded encode, a structure-only decode); prints the
-# modules of JAX or the JAX package that ended up loaded.
+# coded-query server in both modes and with replay, the seeded paths
+# (Scheme 2 with the seeded encode, a structure-only decode), and the dense
+# model family (a reduced qwen3: prefill, a decode step, the wave batcher);
+# prints the modules of JAX or the JAX package that ended up loaded.
 _SLICE = """
 import json, sys, numpy as np, torch
 from repro_torch.core import (FixedCountStragglers, Scheme2, Scheme2Blocked,
@@ -61,10 +62,25 @@ for i in range(3):
     bat.submit(CodedQuery(i, rng.standard_normal(20).astype(np.float32),
                           rng.random(40) < 0.3))
 served.append(len(bat.run()))
+from repro_torch.configs import get_config
+from repro_torch.data import make_batch
+from repro_torch.models import Model
+from repro_torch.serving import Request, WaveBatcher
+import repro_torch.launch.serve
+cfg = get_config("qwen3-1.7b").reduced()
+model = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+batch = make_batch(cfg, 2, 5, generator=torch.Generator().manual_seed(0), device="cpu")
+cache = model.init_cache(2, 8)
+logits, cache = model.prefill(batch, cache)
+logits, cache = model.decode_step(logits[:, -1].argmax(-1)[:, None], 5, cache)
+wave = WaveBatcher(model, n_slots=2, max_len=8)
+wave.submit(Request(rid=0, prompt=[1, 2], max_new=3))
+served.append(len(wave.run()))
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "repro") or m.startswith(("jax.", "jaxlib.", "repro.")))
 print(json.dumps({"bad": bad, "errors": res.errors.tolist(), "served": served,
-                  "seeded_unresolved": int(dec.erased.sum())}))
+                  "seeded_unresolved": int(dec.erased.sum()),
+                  "logits": list(logits.shape), "finite": bool(logits.isfinite().all())}))
 """
 
 
@@ -76,8 +92,9 @@ def test_slice_runs_without_jax_or_repro():
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["bad"] == []
     assert len(result["errors"]) == 2
-    assert result["served"] == [3, 3, 3]
+    assert result["served"] == [3, 3, 3, 1]
     assert result["seeded_unresolved"] == 0
+    assert result["logits"] == [2, 1, 512] and result["finite"]
 
 
 def _sources():

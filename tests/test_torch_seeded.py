@@ -281,9 +281,9 @@ def test_seeded_wrappers_reject_what_the_kernel_does_not_take(bad):
     elif bad == "budget_dtype":
         budgets = budgets.long()
     elif bad == "row_weight":
-        st = st._replace(row_weight=ops.MAX_SEEDED_ROW_WEIGHT + 1)
-    else:
-        st = st._replace(layers=ops.MAX_SEEDED_LAYERS + 1)
+        st = st._replace(row_weight=0)
+    else:                        # layers that do not split the rows
+        st = st._replace(layers=st.layers + 1)
     with pytest.raises(ValueError):
         if bad == "budget_dtype":
             ops.peel_decode_batch_adaptive_seeded_cuda(st, v, e, budgets)
@@ -562,3 +562,46 @@ def test_build_seeded_stores_the_moment():
     s = tcs.Scheme2.build_seeded(tc, tenc.Moments(M, b), lr=0.1, decode_iters=4)
     assert s.seeded_encode and not s.encode_fused and s.C is M
     assert s.engine.backend == "auto" and tdec.resolve_backend("auto", tc) == "cuda"
+
+
+# ---------------------------------------------- past the kernels' old caps
+# The seeded kernels once took row weight and layer count up to 16 only.
+# The wrappers now take any (on CPU tensors they run the plain versions,
+# which the card tests hold the kernels to bit for bit).
+
+@pytest.mark.parametrize("K,p,rw", [(192, 96, 24), (64, 160, 8)],
+                         ids=["row_weight_24", "layers_20"])
+def test_encode_past_the_old_caps_matches_jax(K, p, rw):
+    jc = jldpc.make_seeded_ldgm(K, p, row_weight=rw, seed=3)
+    tc = convert.code_from(jc)
+    st = tenc.generator_structure_of(tc)
+    assert (st.row_weight, st.layers) == (rw, p * rw // K)
+    y = _payload(K, 2, seed=4)
+    idx, coeff = jldpc.seeded_generator_rows(jc, 0, jc.N)
+    with jax.disable_jit():
+        eager = np.asarray(jenc.gather_encode(jnp.asarray(idx), jnp.asarray(coeff),
+                                              jnp.asarray(y)))
+    got = ops.encode_seeded_fused_cuda(st, torch.from_numpy(y)).numpy()
+    _same(got, eager)
+    fused = np.asarray(jenc.encode_seeded(jc, jnp.asarray(y)))
+    bound = idx.shape[1] * 2.0 ** -23 * np.einsum(
+        "nr,nrv->nv", np.abs(coeff), np.abs(y[idx]))
+    assert (np.abs(got - fused) <= bound).all()
+
+
+def test_decode_wrappers_past_the_old_caps_equal_the_table_decode():
+    code = tldpc.make_seeded_ldpc(64, l=20, r=24, seed=1)
+    st = tdec.seeded_spec(code)
+    assert (st.row_weight, st.layers) == (24, 20)
+    v, e = _decode_inputs(code.N, 2, 0.2)
+    tables = tdec.code_tables(code, "cpu")
+    budgets = torch.tensor([3, code.N], dtype=torch.int32)
+    for got, want in (
+            (ops.peel_decode_batch_seeded_cuda(st, v, e, 8),
+             ref.decode_table_batch_ref(tables.check_idx, tables.check_coeff, v, e, 8)),
+            (ops.peel_decode_batch_adaptive_seeded_cuda(st, v, e, budgets),
+             ref.decode_table_batch_adaptive_ref(tables.check_idx, tables.check_coeff,
+                                                 v, e, budgets))):
+        for a, b in zip(got, want):
+            _same(a.numpy(), b.numpy())
+    assert bool((e & ~got[1]).any())

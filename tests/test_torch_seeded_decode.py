@@ -196,3 +196,61 @@ def test_the_grid_reaches_both_ends():
                                torch.from_numpy(erased[0]), 8)
         assert bool(got.erased.any()) is stalls
         assert bool((torch.from_numpy(erased[0]) & ~got.erased).any())
+
+
+# ---------------------------------------------- past the kernels' old caps
+# A (20, 24) code: 20 layers and row weight 24, both past the 16 that the
+# seeded kernels once took (N = 384).  q = 0.15 resolves every erasure
+# within 8 rounds, q = 0.3 stalls.
+
+@functools.cache
+def _wide_code():
+    jc = jldpc.make_seeded_ldpc(64, l=20, r=24, seed=0)
+    assert jldpc.seeded_structure_of(jc).layers == 20
+    _, sv, vt = np.linalg.svd(jc.H.astype(np.float64))
+    basis = vt[int((sv > 1e-9 * sv[0]).sum()):].T
+    return jc, code_from(jc), basis
+
+
+def _wide_inputs(f, batch):
+    jc, _, basis = _wide_code()
+    rng = np.random.default_rng([int(f * 100), batch])
+    erased = rng.random((batch, jc.N)) < f
+    truth = np.einsum("nk,bkv->bnv", basis,
+                      rng.standard_normal((batch, basis.shape[1], 2)))
+    truth = (truth / np.abs(truth).max()).astype(np.float32)
+    garbage = (1e3 * rng.standard_normal((batch, jc.N, 2))).astype(np.float32)
+    return np.where(erased[..., None], garbage, truth), erased, truth
+
+
+@pytest.mark.parametrize("backend,mode", JAX, ids=JAX_IDS)
+@pytest.mark.parametrize("contract", ["fixed", "batch_adaptive"])
+def test_past_the_old_caps_matches_jax(contract, backend, mode):
+    jc, tc, _ = _wide_code()
+    stalls = []
+    for f in (0.15, 0.3):
+        if contract == "fixed":
+            values, erased, truth = _wide_inputs(f, 1)
+            want = jdec.peel_decode(jc, jnp.asarray(values[0]), jnp.asarray(erased[0]),
+                                    8, **_jax_kw(backend, mode))
+            got = tdec.peel_decode(tc, torch.from_numpy(values[0]),
+                                   torch.from_numpy(erased[0]), 8, backend="cuda_seeded")
+            want = tuple(a[None] for a in _np(want))
+            got = tuple(a[None] for a in _torch(got))
+            d64 = _f64("fixed", tc, values[0], erased[0], 8)[None]
+        else:
+            values, erased, truth = _wide_inputs(f, B)
+            bud = np.array([0, 1, 8, jc.N], np.int32)
+            want = jdec.peel_decode_batch_adaptive(
+                jc, jnp.asarray(values), jnp.asarray(erased), budgets=jnp.asarray(bud),
+                **_jax_kw(backend, mode))
+            got = tdec.peel_decode_batch_adaptive(
+                tc, torch.from_numpy(values), torch.from_numpy(erased),
+                budgets=torch.from_numpy(bud), backend="cuda_seeded")
+            np.testing.assert_array_equal(got.rounds_used.numpy(),
+                                          np.asarray(want.rounds_used))
+            want, got = _np(want), _torch(got)
+            d64 = _f64("batch_adaptive", tc, values, erased, torch.from_numpy(bud))
+        _assert_agree(values, erased, truth, got, want, d64)
+        stalls.append(bool(got[1][-1].any()))
+    assert stalls == [False, True]
