@@ -1,6 +1,6 @@
 """The paper's primary contribution: LDPC moment-encoded robust gradient
 descent, on PyTorch and CUDA."""
-from repro_torch.core.coded_step import RunResult, Scheme2, Scheme2Blocked, run_pgd
+from repro_torch.core.coded_step import RunResult, Scheme1, Scheme2, Scheme2Blocked, run_pgd
 from repro_torch.core.decoder import (DecodeResult, PeelSchedule, compile_peel_schedule,
                                       erasure_mask_key, peel_decode, peel_decode_adaptive,
                                       peel_decode_batch, peel_decode_batch_adaptive)
@@ -21,6 +21,6 @@ __all__ = [
     "CodedComputeEngine", "blocked_epilogue",
     "qd_sequence", "q_final", "threshold",
     "Moments", "second_moment", "encode_moment", "encode_moment_blocks",
-    "Scheme2", "Scheme2Blocked", "run_pgd", "RunResult", "Uncoded",
+    "Scheme1", "Scheme2", "Scheme2Blocked", "run_pgd", "RunResult", "Uncoded",
     "BernoulliStragglers", "FixedCountStragglers",
 ]

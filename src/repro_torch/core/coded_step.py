@@ -1,4 +1,4 @@
-"""The paper's coded PGD step (Scheme 2), in PyTorch.
+"""The paper's coded PGD steps (Schemes 1 and 2), in PyTorch.
 
 Scheme 2 (the main contribution) per step ``t``:
 
@@ -19,6 +19,9 @@ any scheme for a number of steps as a Python loop on the tensors' device.
 Under Assumption 1 this is PSGD with an unbiased (1-q_D)-scaled gradient
 (Lemma 1) and converges at RB/((1-q_D)√T) (Theorem 1).  An optional
 ``debias`` flag divides the estimate by (1-q_D).
+
+Scheme 1 (:class:`Scheme1`) recovers M θ exactly from the surviving rows
+by a least-squares solve per block, with no decode.
 """
 from __future__ import annotations
 
@@ -36,7 +39,7 @@ from repro_torch.core.engine import CodedComputeEngine, blocked_epilogue
 from repro_torch.core.ldpc import LDPCCode
 from repro_torch.optim import projections
 
-__all__ = ["Scheme2", "Scheme2Blocked", "run_pgd", "RunResult"]
+__all__ = ["Scheme2", "Scheme2Blocked", "Scheme1", "run_pgd", "RunResult", "lstsq_min_norm"]
 
 
 class RunResult(NamedTuple):
@@ -170,6 +173,12 @@ class Scheme2:
         return self.projection(theta - self.lr * g), n_unresolved
 
 
+def _block_products(C_blocks: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
+    """``(k/K, N)``: every block's rows times ``θ``, one batched product."""
+    nb, _, k = C_blocks.shape
+    return torch.bmm(C_blocks, theta.expand(nb, k).unsqueeze(-1)).squeeze(-1)
+
+
 @dataclasses.dataclass(frozen=True)
 class Scheme2Blocked:
     """Scheme 2 generalized to k > K (paper footnote 2): the k rows of M are
@@ -209,9 +218,7 @@ class Scheme2Blocked:
         block.  A batched product over the blocks: ``torch.matmul`` of the
         3-D ``C_blocks`` with a vector runs as one matrix-vector product,
         which the card computes several times slower (PERF.md)."""
-        nb, _, k = self.C_blocks.shape
-        Z = torch.bmm(self.C_blocks, theta.expand(nb, k).unsqueeze(-1))
-        return Z.squeeze(-1).T.contiguous()
+        return _block_products(self.C_blocks, theta).T.contiguous()
 
     def gradient(self, theta: torch.Tensor, straggler_mask: torch.Tensor):
         eng = self.engine
@@ -221,6 +228,86 @@ class Scheme2Blocked:
         g, unresolved_flat = blocked_epilogue(dec.values, dec.erased, self.b,
                                               K=self.code.K, nb=nb)
         return g, unresolved_flat.sum()
+
+    def step(self, theta: torch.Tensor, straggler_mask: torch.Tensor):
+        g, aux = self.gradient(theta, straggler_mask)
+        return self.projection(theta - self.lr * g), aux
+
+
+def lstsq_min_norm(A: torch.Tensor, Bm: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Minimum-norm least-squares solution ``X`` of ``A X ≈ Bm`` (A ``(n,
+    K)``, Bm ``(n, r)``), as ``jnp.linalg.lstsq`` computes it: one SVD of
+    A, singular values below ``eps·max(n, K)`` times the largest (and
+    zeros) dropped.  Returns ``(X (K, r), kept)``, ``kept`` the mask of the
+    singular values used: its sum is the rank.
+
+    ``torch.linalg.lstsq`` is not used: on CUDA its only LAPACK routine,
+    ``gels``, assumes full rank and gives no minimum-norm solution, and a
+    straggler pattern can leave the surviving rows short of rank K."""
+    n, K = A.shape
+    U, S, Vh = torch.linalg.svd(A, full_matrices=False)
+    rcond = torch.finfo(A.dtype).eps * max(n, K)
+    keep = (S > 0) & (S >= rcond * S[0])
+    s_inv = torch.where(keep, 1.0 / torch.where(keep, S, torch.ones_like(S)),
+                        torch.zeros_like(S))
+    X = Vh.mT @ (s_inv[:, None] * (U.mT @ Bm))
+    return X, keep
+
+
+@dataclasses.dataclass(frozen=True)
+class Scheme1:
+    """Exact-gradient coded PGD (paper Scheme 1): any linear code, exact
+    recovery of M θ from the non-straggling rows by least squares.
+
+    The rows of M are encoded in k/K blocks (:func:`encode_moment_blocks`,
+    the tiled matrix-product kernel on the card); worker ``j`` returns one
+    inner product a block.  Exact while the surviving rows of G keep
+    column rank K, which holds below d_min stragglers (Proposition 1);
+    past that it depends on the pattern, and a rank-deficient solve takes
+    the minimum-norm solution (:func:`lstsq_min_norm`), so the recovered
+    gradient degrades.  The JAX package's ``Scheme1``
+    (``src/repro/core/coded_step.py:184``) solves each block with
+    ``jnp.linalg.lstsq``; here one SVD a step serves all k/K blocks.
+    """
+
+    code: LDPCCode
+    C_blocks: torch.Tensor  # (k/K, N, k)
+    b: torch.Tensor         # (k,)
+    lr: float
+    projection: Callable[[torch.Tensor], torch.Tensor] = projections.identity
+
+    @classmethod
+    def build(cls, code: LDPCCode, moments: Moments, *, lr: float, **kw) -> "Scheme1":
+        return cls(code=code, C_blocks=encode_moment_blocks(code, moments.M),
+                   b=moments.b, lr=lr, **kw)
+
+    @property
+    def w(self) -> int:
+        return self.code.N
+
+    def worker_products(self, theta: torch.Tensor) -> torch.Tensor:
+        """``Z (k/K, N)``: ``Z[i, j] = <C[i, j], θ>``, worker ``j``'s inner
+        product with block ``i`` (one batched product, as
+        :meth:`Scheme2Blocked.worker_products`)."""
+        return _block_products(self.C_blocks, theta)
+
+    def solve(self, Z: torch.Tensor, straggler_mask: torch.Tensor):
+        """M θ ``(k,)`` from the worker products ``Z (k/K, N)``: straggler
+        rows of G and of every block zeroed, then the minimum-norm
+        least-squares solve of each block; and the rank of the surviving
+        rows (a 0-d tensor)."""
+        key = ("generator", Z.device, Z.dtype)
+        G = self.code.device_cache.get(key)                                  # (N, K)
+        if G is None:
+            G = self.code.device_cache[key] = torch.as_tensor(self.code.G).to(Z.device, Z.dtype)
+        avail = (~straggler_mask).to(Z.dtype)
+        X, keep = lstsq_min_norm(G * avail[:, None], (Z * avail[None, :]).T)
+        return X.T.reshape(-1), keep.sum()
+
+    def gradient(self, theta: torch.Tensor, straggler_mask: torch.Tensor):
+        """Return ``(M θ − b, 0)``: no coordinate is left unresolved."""
+        Mtheta, _ = self.solve(self.worker_products(theta), straggler_mask)
+        return Mtheta - self.b, torch.zeros((), dtype=torch.int32, device=theta.device)
 
     def step(self, theta: torch.Tensor, straggler_mask: torch.Tensor):
         g, aux = self.gradient(theta, straggler_mask)

@@ -11,7 +11,13 @@ squared loss is ``∇L(θ) = M θ - b`` with ``M = X^T X`` and ``b = X^T y``.
   blocks, each encoded separately: ``C^(i) = G M_{P_i}``; worker ``j`` holds
   row ``j`` of every block and returns ``k/K`` scalars.
 
-The encode is a plain float32 matrix product on the tensors' device.
+The encode ``C = G @ M`` runs through the tiled matrix-product kernel
+(:func:`repro_torch.kernels.block_matmul.encode_gm`, ``csrc/block_matmul.cu``)
+on the card, the blocked encode as one launch over the k/K blocks; on the
+CPU through its plain version, ``torch.matmul``.  float32 moments encode
+in float32 (FMAs, never TF32).  float64 moments encode in float64 on the
+CPU only; on the card a float64 reference run builds its ``C`` with
+:func:`repro_torch.kernels.block_matmul.block_matmul_ref`.
 
 SEEDED encode: for a seeded LDGM code
 (:func:`repro_torch.core.ldpc.make_seeded_ldgm`) every generator row is an
@@ -36,6 +42,7 @@ import torch
 from repro_torch.core.ldpc import (LDPCCode, SeededStructure, seeded_generator_rows,
                                    seeded_structure)
 from repro_torch.device import resolve_device
+from repro_torch.kernels.block_matmul import encode_gm
 from repro_torch.kernels.ldpc_peel import encode_seeded_fused_cuda
 from repro_torch.kernels.ldpc_peel.ref import gather_encode
 
@@ -65,17 +72,18 @@ def encode_moment(code: LDPCCode, M: torch.Tensor) -> torch.Tensor:
     if code.K != M.shape[0]:
         raise ValueError(f"code dimension K={code.K} != k={M.shape[0]}; "
                          "use encode_moment_blocks for K | k")
-    return _generator(code, M) @ M
+    return encode_gm(_generator(code, M), M)
 
 
 def encode_moment_blocks(code: LDPCCode, M: torch.Tensor) -> torch.Tensor:
-    """Blocked encode: ``C`` of shape (k/K, N, k) with
-    ``C[i] = G @ M[i*K:(i+1)*K]``; worker ``j`` holds ``C[:, j, :]``."""
+    """Blocked encode (Scheme 1's, and :class:`Scheme2Blocked`'s): ``C`` of
+    shape (k/K, N, k) with ``C[i] = G @ M[i*K:(i+1)*K]``; worker ``j`` holds
+    ``C[:, j, :]``.  One launch for all k/K blocks."""
     k = M.shape[0]
     if k % code.K != 0:
         raise ValueError(f"K={code.K} must divide k={k}")
     nb = k // code.K
-    return torch.matmul(_generator(code, M), M.reshape(nb, code.K, k))
+    return encode_gm(_generator(code, M), M.reshape(nb, code.K, k))
 
 
 def generator_gather_tables(code: LDPCCode, device=None

@@ -20,7 +20,10 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["SOURCES", "BUILD_DIR", "build_all", "library"]
+__all__ = ["SOURCES", "BUILD_DIR", "MAX_SMEM_BYTES", "build_all", "library"]
+
+# Dynamic shared memory a block may use on sm_90 (H100, H200).
+MAX_SMEM_BYTES = 232_448
 
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parents[2] / "build" / "kernels"
@@ -32,6 +35,8 @@ SOURCES = {
     "seeded_encode": _PKG / "ldpc_peel" / "csrc" / "seeded_encode.cu",
     "replay_decode": _PKG / "ldpc_peel" / "csrc" / "replay_decode.cu",
     "flash_attention": _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
+    "block_matmul": _PKG / "block_matmul" / "csrc" / "block_matmul.cu",
+    "check_pass": _PKG / "ldpc_peel" / "csrc" / "check_pass.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -25,11 +25,13 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   kv_valid: torch.Tensor | None = None, chunk: int = 512) -> torch.Tensor:
     """``softmax(q·kᵀ·scale + mask)·v`` with ``scale = 1/√Dh``.
 
-    q ``(B, Sq, KV, G, Dh)`` (query head ``h`` of KV head ``h // G``), k and
-    v ``(B, T, KV, Dh)``, ``q_pos (Sq,)`` and ``kv_pos (T,)`` int positions,
+    q ``(B, Sq, KV, G, Dh)`` (query head ``h`` of KV head ``h // G``), k
+    ``(B, T, KV, Dh)``, v ``(B, T, KV, Dv)`` (Dv may differ from Dh, as in
+    MLA), ``q_pos (Sq,)`` and ``kv_pos (T,)`` int positions,
     ``kv_valid (T,)`` bool or None.  Key ``t`` is visible to query ``i``
     when ``kv_pos[t] <= q_pos[i]`` (if ``causal``) and ``kv_valid[t]``.
-    Computes in float32 (float64 for float64 inputs) and returns v's dtype.
+    Computes in float32 (float64 for float64 inputs) and returns ``(B, Sq,
+    KV, G, Dv)`` in v's dtype.
     Queries are taken ``chunk`` at a time when ``chunk`` divides ``Sq``
     into more than one chunk, as ``sdpa_chunked`` does.
     """

@@ -55,6 +55,10 @@ replaying its own packed :class:`ReplayPack` schedule under its own round
 budget, in one launch of ``csrc/replay_decode.cu``; on CPU tensors
 :func:`.ref.replay_ref`.
 
+The one-round entry point :func:`peel_round_cuda` (the JAX package's
+``peel_round_pallas``) runs the check pass of ``csrc/check_pass.cu``
+through :func:`check_pass_cuda` (``check_pass``), then scatters in torch.
+
 Each wrapper's ``.launches`` counts its own kernel launches (and nothing
 else), so a run can show that it went through the kernel.
 """
@@ -75,10 +79,10 @@ __all__ = ["CodeTables", "peel_decode_cuda", "peel_decode_batch_cuda",
            "peel_decode_seeded_cuda", "peel_decode_batch_seeded_cuda",
            "peel_decode_adaptive_seeded_cuda",
            "peel_decode_batch_adaptive_seeded_cuda", "encode_seeded_fused_cuda",
-           "ReplayPack", "check_replay_host", "peel_decode_replay_cuda", "MAX_SMEM_BYTES"]
+           "ReplayPack", "check_replay_host", "peel_decode_replay_cuda", "MAX_SMEM_BYTES",
+           "check_pass_cuda", "peel_round_cuda"]
 
-# Dynamic shared memory a block may use on sm_90 (H100, H200).
-MAX_SMEM_BYTES = 232_448
+MAX_SMEM_BYTES = build.MAX_SMEM_BYTES
 # Payload columns one decode block owns (kCols in the decode kernels).
 _COLS_PER_BLOCK = 4
 
@@ -607,10 +611,85 @@ def peel_decode_replay_cuda(pack: ReplayPack, values: torch.Tensor,
     return out_v, out_e, rounds
 
 
+# -------------------------------------------------------------- check pass
+
+
+@functools.cache
+def _check_lib() -> ctypes.CDLL:
+    lib = _load("check_pass")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.check_pass_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
+    lib.check_pass_launch.restype = ctypes.c_int
+    return lib
+
+
+def check_pass_cuda(H: torch.Tensor, values: torch.Tensor, erased: torch.Tensor):
+    """One round's check-node pass over a dense ``H (p, N)`` float32:
+    ``values (N, V)`` float32, ``erased (N,)`` bool, all contiguous on one
+    device.  Returns ``(sums (p, V), cnt (p, 1), pos (p, 1) int32, coeff
+    (p, 1))`` as the JAX ``check_pass`` does (see
+    :func:`.ref.check_pass_ref`, which CPU tensors run): ``cnt`` float32,
+    ``pos`` the highest erased neighbour (-1 if none).  Any p, N and V."""
+    dev = H.device
+    _check_operands(dev, [("H", H, torch.float32, 2), ("values", values, torch.float32, 2),
+                          ("erased", erased, torch.bool, 1)])
+    p, N = H.shape
+    V = values.shape[1]
+    if values.shape[0] != N or erased.shape[0] != N or min(p, N, V) < 1:
+        raise ValueError(f"H {tuple(H.shape)}, values {tuple(values.shape)} and erased "
+                         f"{tuple(erased.shape)} must be (p, N), (N, V) and (N,), none empty")
+    if dev.type == "cpu":
+        return ref.check_pass_ref(H, values, erased.to(torch.float32)[:, None])
+    if dev.type != "cuda":
+        raise ValueError(f"no check pass for device {dev}")
+    lib = _check_lib()
+    sums = torch.empty((p, V), dtype=torch.float32, device=dev)
+    cnt = torch.empty((p, 1), dtype=torch.float32, device=dev)
+    pos = torch.empty((p, 1), dtype=torch.int32, device=dev)
+    coeff = torch.empty((p, 1), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.check_pass_launch(H.data_ptr(), values.data_ptr(), erased.data_ptr(),
+                                   sums.data_ptr(), cnt.data_ptr(), pos.data_ptr(),
+                                   coeff.data_ptr(), p, N, V, stream)
+    _raise_on(rc, lib, "check_pass")
+    check_pass_cuda.launches += 1
+    return sums, cnt, pos, coeff
+
+
+def peel_round_cuda(H: torch.Tensor, values: torch.Tensor, erased: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One flooding round over a dense ``H (p, N)`` float32, the
+    counterpart of the JAX package's ``peel_round_pallas``: ``values (N,)``
+    or ``(N, V)`` float32, ``erased (N,)`` bool; returns ``(values,
+    erased)`` updated.  The check pass is :func:`check_pass_cuda` (one
+    kernel launch; its plain version on the CPU); the scatter follows in
+    torch: every check with exactly one erased neighbour proposes
+    ``-sums / coeff`` for it, and where several propose for one
+    coordinate the HIGHEST check row's value is kept (chosen explicitly,
+    as ``core.decoder.peel_round`` does).  Erased entries enter the sums
+    as ``v·0``, JAX's arithmetic: a NaN or inf there makes every
+    proposal of the round NaN."""
+    squeeze = values.ndim == 1
+    vals = (values[:, None] if squeeze else values).contiguous()
+    H = H.contiguous()
+    sums, cnt, pos, coeff = check_pass_cuda(H, vals, erased.contiguous())
+    cnt, pos, coeff = cnt[:, 0], pos[:, 0].long(), coeff[:, 0]
+    p, N = H.shape
+    new_val = -sums / torch.where(coeff == 0.0, 1.0, coeff)[:, None]
+    safe_pos = torch.where(cnt == 1.0, pos, N)               # N = dropped
+    winner = torch.full((N + 1,), -1, dtype=torch.long, device=H.device)
+    winner.scatter_reduce_(0, safe_pos, torch.arange(p, device=H.device), reduce="amax")
+    winner = winner[:N]
+    resolved = winner >= 0
+    out = torch.where(resolved[:, None], new_val[winner.clamp(min=0)], vals)
+    return (out[:, 0] if squeeze else out), erased & ~resolved
+
+
 for _w in (peel_decode_cuda, peel_decode_batch_cuda, peel_decode_adaptive_cuda,
            peel_decode_batch_adaptive_cuda, peel_decode_seeded_cuda,
            peel_decode_batch_seeded_cuda, peel_decode_adaptive_seeded_cuda,
            peel_decode_batch_adaptive_seeded_cuda, encode_seeded_fused_cuda,
-           peel_decode_replay_cuda):
+           peel_decode_replay_cuda, check_pass_cuda):
     _w.launches = 0
 del _w

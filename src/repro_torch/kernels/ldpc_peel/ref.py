@@ -40,6 +40,11 @@ versions build the sorted table of the rows they need and run
 * :func:`encode_seeded_ref` — seeded-LDGM codeword rows from ``row0``, the
   sequential unfused chain of :func:`gather_encode` in table order.
 
+:func:`check_pass_ref` is the plain version of the check-pass kernel
+(``csrc/check_pass.cu``): one round's check-node pass over a dense H, a
+copy of the JAX package's ``ldpc_peel/ref.py:10 check_pass_ref`` whose
+sums run in the kernel's order.
+
 A seeded structure ``st`` is anything with the fields of
 ``repro_torch.core.ldpc.SeededStructure``.
 
@@ -61,7 +66,8 @@ __all__ = ["dense_h", "lo_round", "adaptive_loop", "decode_fused_ref",
            "decode_seeded_adaptive_ref", "decode_seeded_batch_adaptive_ref",
            "decode_table_ref", "decode_table_batch_ref", "decode_table_adaptive_ref",
            "decode_table_batch_adaptive_ref", "fixed_loop", "gather_encode",
-           "generator_window", "encode_seeded_ref", "edge_sum", "replay_ref"]
+           "generator_window", "encode_seeded_ref", "edge_sum", "replay_ref",
+           "check_pass_ref"]
 
 
 def dense_h(check_idx: torch.Tensor, check_coeff: torch.Tensor,
@@ -510,3 +516,27 @@ def replay_ref(nidx: torch.Tensor, w: torch.Tensor, coeff: torch.Tensor,
         ebase += n_b
         rbase += R_b + 1
     return vals, e, torch.tensor(rounds, dtype=torch.int32, device=values.device)
+
+
+def check_pass_ref(H: torch.Tensor, values: torch.Tensor, erased_f: torch.Tensor):
+    """H (p, N) f32, values (N, V) f32, erased_f (N, 1) f32 (1.0 = erased)
+    -> (sums (p, V), cnt (p, 1), pos (p, 1) int32, coeff (p, 1)), as the
+    JAX ``check_pass_ref``: ``cnt`` the erased neighbours of each row,
+    ``pos`` the highest one's column (-1 if none), ``coeff`` its weight (0
+    if none), ``sums = H @ (values·(1 − e))`` over every column, zeros of H
+    included, so a NaN or inf in an erased entry (times 0, NaN) reaches
+    every row's sum as in JAX.  The sum runs in ascending column order, a
+    rounded product and a rounded add per term from +0, as the kernel
+    does: the two agree bit for bit."""
+    e = erased_f[:, 0]
+    Hb = (H != 0.0).to(H.dtype)
+    cnt = Hb @ e
+    known = values * (1.0 - e)[:, None]
+    sums = torch.zeros((H.shape[0], values.shape[1]), dtype=H.dtype, device=H.device)
+    for j in range(H.shape[1]):
+        sums = sums + H[:, j, None] * known[None, j, :]
+    idx = torch.arange(H.shape[1], dtype=torch.int32, device=H.device).expand(H.shape)
+    mask = (Hb * e[None, :]) > 0
+    pos = torch.where(mask, idx, -1).max(dim=1).values
+    coeff = (H * (idx == pos[:, None])).sum(dim=1)
+    return sums, cnt[:, None], pos[:, None], coeff[:, None]

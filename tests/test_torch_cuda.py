@@ -597,16 +597,17 @@ def test_seeded_encode_past_the_old_caps(cuda, name):
 # beyond that f32 bound.
 
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention_cuda  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import MAX_HEAD_DIM  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import bf16_ulp  # noqa: E402
 
 FLASH_F32_ULPS = 4
 
 
-def _flash_inputs(B, Sq, T, KV, G, Dh, dtype, seed, dev):
+def _flash_inputs(B, Sq, T, KV, G, Dh, dtype, seed, dev, Dv=None):
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((B, Sq, KV, G, Dh), generator=g, device=dev).to(dtype)
     k = torch.randn((B, T, KV, Dh), generator=g, device=dev).to(dtype)
-    v = torch.randn((B, T, KV, Dh), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, T, KV, Dh if Dv is None else Dv), generator=g, device=dev).to(dtype)
     return q, k, v
 
 
@@ -657,6 +658,23 @@ def test_flash_decode_and_ring_match_plain(cuda, dtype, T):
         _flash_close(got, want, v)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("Dh,Dv", [(192, 128), (48, 32), (96, 96), (40, 24), (64, 200),
+                                   (MAX_HEAD_DIM, 64)])
+@pytest.mark.parametrize("G", [1, 2])
+def test_flash_any_head_dims_match_plain(cuda, dtype, Dh, Dv, G):
+    # the generic path: Dh read at run time, v taken 64 columns a block
+    for Sq, T in ((37, 37), (1, 300)):
+        q, k, v = _flash_inputs(2, Sq, T, 2, G, Dh, dtype, Dh + Dv + G, cuda, Dv=Dv)
+        q_pos = torch.arange(T - Sq, T, dtype=torch.int32, device=cuda)
+        kv_pos = torch.arange(T, dtype=torch.int32, device=cuda)
+        got = flash_attention_cuda(q, k, v, q_pos, kv_pos, causal=True)
+        want = attention_ref(q, k, v, q_pos, kv_pos, causal=True)
+        torch.cuda.synchronize()
+        assert got.shape == (2, Sq, 2, G, Dv)
+        _flash_close(got, want, v)
+
+
 def test_flash_rows_with_every_key_masked_stay_finite(cuda):
     # Queries at positions before every key: no key is visible.  The finite
     # mask value makes each such row the mean of v, as a full softmax does.
@@ -679,8 +697,9 @@ def test_flash_wrapper_counts_and_rejects(cuda):
     assert flash_attention_cuda.launches - before == 1
     for bad in (lambda: flash_attention_cuda(q.half(), k.half(), v.half(), pos, pos),
                 lambda: flash_attention_cuda(q.double(), k.double(), v.double(), pos, pos),
-                lambda: flash_attention_cuda(q[..., :32].contiguous(), k[..., :32].contiguous(),
-                                             v[..., :32].contiguous(), pos, pos),
+                lambda: flash_attention_cuda(*(torch.zeros(x.shape[:-1] + (MAX_HEAD_DIM + 1,),
+                                                           device=cuda) for x in (q, k)), v,
+                                             pos, pos),
                 lambda: flash_attention_cuda(q, k, v, pos.long(), pos),
                 lambda: flash_attention_cuda(q, k.cpu(), v, pos, pos)):
         with pytest.raises(ValueError):
@@ -706,3 +725,131 @@ def test_reduced_model_on_the_card_matches_the_cpu(cuda):
     assert flash_attention_cuda.launches - before == cfg.n_layers * 4
     for c_cpu, c_gpu in zip(*caches):
         assert torch.equal(c_cpu["pos"], c_gpu["pos"].cpu())
+
+
+# ---------------------------------------------------------- block matmul
+# The tiled product against its plain version (torch.matmul in f32) and
+# against float64: within K·2⁻²⁴·(|A|·|B|) of float64 entry by entry, and
+# no more than twice torch.matmul's own distance from float64 (plus 1e-30);
+# two runs bit for bit.
+
+from repro_torch.kernels.block_matmul import block_matmul, coded_matvec, encode_gm  # noqa: E402
+from repro_torch.kernels.block_matmul.ref import block_matmul_ref  # noqa: E402
+
+
+def _mm_held(got, A, B):
+    A64, B64 = A.double(), B.double()
+    exact = torch.matmul(A64, B64)
+    bound = A.shape[-1] * 2.0 ** -24 * torch.matmul(A64.abs(), B64.abs())
+    err = (got.double() - exact).abs()
+    assert bool((err <= bound).all())
+    lib = (block_matmul_ref(A, B).double() - exact).abs()
+    assert float(err.max()) <= 2 * float(lib.max()) + 1e-30
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 8, 8), (128, 128, 128), (100, 37, 65),
+                                   (256, 512, 128), (40, 200, 1), (1, 1, 1), (300, 1029, 257)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_block_matmul_matches_plain_and_float64(cuda, M, K, N, dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(M * K + N)
+    A = torch.randn((M, K), generator=g, device=cuda).to(dtype)
+    B = torch.randn((K, N), generator=g, device=cuda).to(dtype)
+    got = block_matmul(A, B)
+    again = block_matmul(A, B)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    _mm_held(got, A, B)
+
+
+def test_block_matmul_batch_shared_a_mixed_and_float64(cuda):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    G = torch.randn((70, 33), generator=g, device=cuda)
+    Mb = torch.randn((5, 33, 90), generator=g, device=cuda)
+    out = encode_gm(G, Mb)
+    torch.cuda.synchronize()
+    assert out.shape == (5, 70, 90)
+    for i in range(5):                        # each block is the 2-D product, bit for bit
+        assert torch.equal(out[i], block_matmul(G, Mb[i]))
+    _mm_held(out, G.expand(5, 70, 33), Mb)
+    mixed = block_matmul(G.to(torch.bfloat16), Mb[0])
+    _mm_held(mixed, G.to(torch.bfloat16), Mb[0])
+    with pytest.raises(ValueError):          # float64 runs the plain version, on the CPU only
+        block_matmul(G.double(), Mb.double())
+    theta = torch.randn(90, generator=g, device=cuda)
+    assert torch.equal(coded_matvec(Mb[0], theta), block_matmul(Mb[0], theta[:, None])[:, 0])
+
+
+def test_block_matmul_counts_its_launches_and_rejects(cuda):
+    A = torch.randn((16, 8), device=cuda)
+    before = block_matmul.launches
+    block_matmul(A, A.T.contiguous())
+    coded_matvec(A, torch.randn(8, device=cuda))
+    block_matmul(A.cpu(), A.T.cpu())
+    assert block_matmul.launches - before == 2
+    for bad in (lambda: block_matmul(A.half(), A.T.half()),
+                lambda: block_matmul(A, A),
+                lambda: block_matmul(A.double(), A.T),
+                lambda: block_matmul(A, A.T.cpu())):
+        with pytest.raises(ValueError):
+            bad()
+
+
+def test_encode_runs_the_kernel(cuda):
+    code = make_regular_ldpc(64, seed=0)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    M = torch.randn((128, 128), generator=g, device=cuda)
+    before = block_matmul.launches
+    C = encoding.encode_moment_blocks(code, M)
+    C2 = encoding.encode_moment(code, M[:64, :64].contiguous())
+    torch.cuda.synchronize()
+    assert block_matmul.launches - before == 2
+    Gt = torch.as_tensor(code.G, dtype=torch.float32, device=cuda)
+    _mm_held(C, Gt.expand(2, *Gt.shape), M.reshape(2, 64, 128))
+    _mm_held(C2, Gt, M[:64, :64])
+
+
+# ------------------------------------------------------------ check pass
+# The kernel sums in its plain version's order, so all four outputs agree
+# bit for bit (NaNs by position).
+
+from repro_torch.kernels.ldpc_peel import check_pass_cuda, check_pass_ref, peel_round_cuda  # noqa: E402
+
+
+@pytest.mark.parametrize("p,N,V", [(8, 16, 1), (32, 64, 4), (128, 256, 128), (130, 260, 7),
+                                   (64, 128, 200), (1024, 2048, 32)])
+@pytest.mark.parametrize("bad", [None, "nan", "inf"])
+def test_check_pass_matches_plain(cuda, p, N, V, bad):
+    rng = np.random.default_rng([p, N, V])
+    H = rng.standard_normal((p, N)).astype(np.float32)
+    H[rng.random((p, N)) < 0.8] = 0.0
+    vals = rng.standard_normal((N, V)).astype(np.float32)
+    erased = rng.random(N) < 0.3
+    if bad is not None:
+        vals[np.flatnonzero(erased)[0]] = np.nan if bad == "nan" else np.inf
+    Ht, vt, et = (torch.from_numpy(a).to(cuda) for a in (H, vals, erased))
+    got = check_pass_cuda(Ht, vt, et)
+    want = check_pass_ref(Ht, vt, et.float()[:, None])
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        nan = torch.isnan(b)
+        assert torch.equal(torch.isnan(a), nan)
+        assert torch.equal(torch.where(nan, 0, a), torch.where(nan, 0, b))
+    assert bad is None or bool(torch.isnan(got[0]).all())
+
+
+def test_peel_round_matches_the_cpu_and_counts(cuda):
+    code = make_regular_ldpc(100, seed=1)
+    rng = np.random.default_rng(0)
+    cw = code.encode(rng.standard_normal((100, 8))).astype(np.float32)
+    erased = rng.random(code.N) < 0.3
+    rx = np.where(erased[:, None], 0.0, cw).astype(np.float32)
+    H = torch.from_numpy(np.ascontiguousarray(code.H, np.float32))
+    before = check_pass_cuda.launches
+    gv, ge = peel_round_cuda(H.to(cuda), torch.from_numpy(rx).to(cuda),
+                             torch.from_numpy(erased).to(cuda))
+    cv, ce = peel_round_cuda(H, torch.from_numpy(rx), torch.from_numpy(erased))
+    assert check_pass_cuda.launches - before == 1
+    assert torch.equal(ge.cpu(), ce) and bool((erased & ~ce.numpy()).any())
+    assert torch.equal(gv.cpu(), cv)

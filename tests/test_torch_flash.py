@@ -11,7 +11,12 @@ plain version, ``ref.attention_ref``.  It is held here against
   multiples, head dimensions 32, 64 and 128, f32 and bf16;
 * the JAX ``models.attention.sdpa_chunked``: query positions shifted
   against the keys', a wrapped ring buffer with ``INT32_MAX`` slots and
-  ``kv_valid``, and query chunks that do and do not divide Sq.
+  ``kv_valid``, and query chunks that do and do not divide Sq;
+* head dimensions the dense family does not use: odd ones (40, 48, 96,
+  200) against the Pallas kernel (which takes Dv = Dh only), and v's head
+  dimension apart from q's and k's (MLA: 192 with 128 at deepseek-v2's
+  width, 48 with 32 reduced) against ``sdpa_chunked``, prefill and
+  decode, 1 and 2 query heads per KV head.
 
 The same numpy inputs go to both.  Tolerances: f32 outputs within
 F32_ULPS units of 2⁻²³·max|v| (both compute in f32; the online softmax of
@@ -37,11 +42,11 @@ F32_ULPS = 4
 INT32_MAX = np.iinfo(np.int32).max
 
 
-def _inputs(B, Sq, T, KV, G, Dh, seed):
+def _inputs(B, Sq, T, KV, G, Dh, seed, Dv=None):
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((B, Sq, KV, G, Dh)).astype(np.float32)
     k = rng.standard_normal((B, T, KV, Dh)).astype(np.float32)
-    v = rng.standard_normal((B, T, KV, Dh)).astype(np.float32)
+    v = rng.standard_normal((B, T, KV, Dh if Dv is None else Dv)).astype(np.float32)
     return q, k, v
 
 
@@ -86,6 +91,38 @@ def test_plain_version_matches_jax_flash_kernel(causal, G, Sq, Sk, Dh, dtype):
     got = flash_attention_cuda(tq, tk, tv, torch.arange(Sq, dtype=torch.int32),
                                torch.arange(Sk, dtype=torch.int32), causal=causal)
     _close(got, np.asarray(want, np.float32).reshape(B, Sq, KV, G, Dh), v, dtype)
+
+
+@pytest.mark.parametrize("causal,G,Dh,dtype", [(True, 2, 48, "f32"), (False, 1, 40, "f32"),
+                                                (True, 1, 96, "bf16"), (True, 2, 200, "f32")])
+def test_plain_version_matches_jax_flash_kernel_at_odd_head_dims(causal, G, Dh, dtype):
+    B, KV, Sq, Sk = 1, 2, 20, 33
+    q, k, v = _inputs(B, Sq, Sk, KV, G, Dh, seed=[Dh, G])
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dtype) for a in (q, k, v))
+    want = flash_attention(jq.reshape(B, Sq, KV * G, Dh), jk, jv, causal=causal,
+                           interpret=True)
+    got = flash_attention_cuda(tq, tk, tv, torch.arange(Sq, dtype=torch.int32),
+                               torch.arange(Sk, dtype=torch.int32), causal=causal)
+    _close(got, np.asarray(want, np.float32).reshape(B, Sq, KV, G, Dh), v, dtype)
+
+
+@pytest.mark.parametrize("Dh,Dv", [(192, 128), (48, 32), (40, 24), (32, 100)])
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("decode", [False, True])
+def test_plain_version_matches_sdpa_chunked_with_dv_apart(Dh, Dv, G, decode):
+    B, KV, T = 1, 2, 24
+    Sq = 1 if decode else T
+    q, k, v = _inputs(B, Sq, T, KV, G, Dh, seed=[Dh, Dv, G, Sq], Dv=Dv)
+    q_pos = np.arange(T - Sq, T, dtype=np.int32)
+    kv_pos = np.arange(T, dtype=np.int32)
+    for dtype in ("f32", "bf16"):
+        (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dtype) for a in (q, k, v))
+        want = sdpa_chunked(jq, jk, jv, jnp.asarray(q_pos), jnp.asarray(kv_pos), causal=True,
+                            chunk=8)
+        got = flash_attention_cuda(tq, tk, tv, torch.from_numpy(q_pos),
+                                   torch.from_numpy(kv_pos), causal=True, chunk=8)
+        assert got.shape == (B, Sq, KV, G, Dv)
+        _close(got, want, v, dtype)
 
 
 def _ring(T, p, seed):

@@ -13,9 +13,10 @@ FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
 
 # A 2-step CPU slice through the port's public entry points, a tiny
 # coded-query server in both modes and with replay, the seeded paths
-# (Scheme 2 with the seeded encode, a structure-only decode), and the dense
-# model family (a reduced qwen3: prefill, a decode step, the wave batcher);
-# prints the modules of JAX or the JAX package that ended up loaded.
+# (Scheme 2 with the seeded encode, a structure-only decode), Scheme 1 and
+# the one-round entry point, and the dense model family (a reduced qwen3:
+# prefill, a decode step, the wave batcher); prints the modules of JAX or
+# the JAX package that ended up loaded.
 _SLICE = """
 import json, sys, numpy as np, torch
 from repro_torch.core import (FixedCountStragglers, Scheme2, Scheme2Blocked,
@@ -52,6 +53,12 @@ seeded = Scheme2.build_seeded(make_seeded_ldgm(20, 10, row_weight=4),
 run_pgd(seeded, torch.zeros(20), FixedCountStragglers(3), 2, generator=gen)
 dec = CodedComputeEngine(SeededLDPC(N=64, K=32, l=4, r=8), decode_iters=4).decode(
     torch.ones(64), torch.arange(64) % 5 == 0)
+from repro_torch.core import Scheme1
+from repro_torch.kernels.ldpc_peel import peel_round_cuda
+s1 = Scheme1.build(code, second_moment(prob.X, prob.y), lr=prob.lr)
+run_pgd(s1, torch.zeros(80), FixedCountStragglers(10), 2, generator=gen)
+peel_round_cuda(torch.as_tensor(code.H, dtype=torch.float32), torch.ones(40, 2),
+                torch.arange(40) % 7 == 0)
 from repro_torch.core import ScheduleCache
 replay = Scheme2.build(code, second_moment(small.X, small.y), lr=small.lr,
                        decode_iters=6, decode_backend="replay",
