@@ -84,28 +84,43 @@ Phases, each printing its own lines:
 15. the table decode past shared memory: make_parity_only_ldpc(24576)
    (N = 49,152, state in device memory), all four contracts against the
    table plain version, bit for bit; prints the kernel's ms;
-16. the flash-attention kernel against its plain version: f32 and bf16,
-   G in {1, 2, 8}, Dh in {64, 128}, prefill Sq = Sk in {17, 512, 2048}
-   causal and not, decode Sq = 1 over T in {1, 2080, 4096}, a wrapped ring
-   buffer with kv_valid; then (Dh, Dv) in {(192, 128), (48, 32), (96, 96),
-   (40, 24), (559, 64)} (559 the largest Dh that fits), G in {1, 2},
-   prefill S = 300 and decode T = 2080; f32 within 4 units of 2^-23 max|v|, bf16 within
-   one bf16 ulp of the output beyond that.  Holds the kernel to the same
-   tolerance at Qwen3-1.7B's prefill (B = 4, 16 heads over 8 KV heads,
-   Dh = 128, S = 2048) and decode (T = 2080) shapes, and times it there
-   beside the plain version, torch's scaled_dot_product_attention (a
-   yardstick only) and the bound (the bytes, or q·kᵀ on bf16 tensor cores
-   plus p·v in f32, whichever is larger);
+16. the flash-attention kernels against their plain version: f32 and
+   bf16, G in {1, 2, 8}, Dh in {64, 128}, prefill Sq = Sk in {17, 512,
+   2048} causal and not, decode Sq = 1 over T in {1, 2080, 4096}, a wrapped
+   ring buffer with kv_valid (bf16 with Sq·G >= 64 on the tensor-core
+   kernel, the rest on the SIMT one); the tensor-core kernel at S in
+   {300, 2048}, G in {1, 2, 8}, Dh in {64, 128}, causal and not, and with
+   queries before every key (the mean of v); then (Dh, Dv) in {(192, 128),
+   (48, 32), (96, 96), (40, 24), (559, 64)}, G in {1, 2}, prefill S = 300
+   and decode T = 2080; f32 within 4 units of 2^-23 max|v|, bf16 within
+   one bf16 ulp of the output beyond that.  On every tensor-path case, a
+   control: the plain version with p rounded once to bf16 (one p·v
+   product) must fail that comparison, so p's three bf16 terms are
+   checked.  Dh in {576, 1024} with Dv in
+   {64, 512} (past the old cap of 559) held to the float64 run of the
+   plain version: within twice the plain version's distance from it plus
+   4 units of 2^-23 max|v|.  Every launch's path is counted and its key
+   tiles equal the skip rule's plain version (ref.tiles_visited).  Holds
+   the kernels to the same tolerance at Qwen3-1.7B's prefill (B = 4, 16
+   heads over 8 KV heads, Dh = 128, S = 2048; bf16 on the tensor-core
+   kernel, f32 on the SIMT one) and decode (T = 2080) shapes, and times
+   them there beside the plain version, torch's
+   scaled_dot_product_attention (a yardstick only; CUDA events) and the
+   bound (the bytes, or q·kᵀ and p·v as 1 + 3 bf16 tensor-core products,
+   whichever is larger; the bound of the f32 p·v design beside it);
 17. Qwen3-1.7B at full width (configs/qwen3_1p7b.py: 28 layers, d_model
    2048, vocab 151,936), bf16, RANDOM weights from --seed (the repository
    holds none): prefill of 4 prompts of 2048 tokens into a cache of 2080,
-   then 32 greedy decode steps, the flash kernel launched 28 x 33 times;
+   then 32 greedy decode steps, the flash kernel launched 28 x 33 times,
+   the 28 prefill launches on the tensor-core kernel and the 28 x 32
+   decode launches on the SIMT one (the counts by path);
    the prefill and 4 steps again with the attention on the plain version
    and in f32 on the same weights, the kernel's logits within 2x the plain
    version's distance from the f32 logits plus 1e-3 max|logit|; then the
    WaveBatcher serving 8 requests of 16-64 prompt tokens (max_new 16) on 4
    slots.  Prints prefill and decode times and tokens/s, the kernel's share
-   of a decode step, the device's busy share and the peak memory;
+   of a decode step and of a prefill, the device's busy share and the
+   peak memory;
 18. the tiled GEMM (the moment encode of phases 4, 5, 7 and 8, one launch
    each, counted) against its plain version and float64: the JAX sweep's
    shapes in f32 and bf16 and the encodes of phases 4, 5 (each of its 32
@@ -291,15 +306,18 @@ def values_agree(weights: str, v, e, truth, kv, ke, pv, pe, dense64) -> float:
 
 
 def flash_phase(dev: torch.device, seed: int) -> dict:
-    """Phase 16: the flash kernel against its plain version over the grid of
-    the module docstring, then timed at Qwen3-1.7B's prefill and decode
+    """Phase 16: the flash kernels against their plain version over the grid
+    of the module docstring, every launch's key tiles against the skip
+    rule's plain version, then timed at Qwen3-1.7B's prefill and decode
     shapes.  Returns the numbers of the kernels line."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention_cuda
-    from repro_torch.kernels.flash_attention.ops import MAX_HEAD_DIM
-    from repro_torch.kernels.flash_attention.ref import bf16_ulp
+    from repro_torch.kernels.flash_attention.ops import kernel_path, tile_count
+    from repro_torch.kernels.flash_attention.ref import bf16_ulp, tiles_visited
     gen = torch.Generator(device=dev).manual_seed(seed + 16)
     f32_ulps = 4
+    paths = {"tensor": 0, "simt": 0}
+    n_tiles = 0
 
     def inputs(B, Sq, T, KV, G, Dh, dtype, Dv=None):
         q = torch.randn((B, Sq, KV, G, Dh), generator=gen, device=dev).to(dtype)
@@ -308,18 +326,62 @@ def flash_phase(dev: torch.device, seed: int) -> dict:
                         device=dev).to(dtype)
         return q, k, v
 
+    def kernel(q, k, v, q_pos, kv_pos, what, causal=True, kv_valid=None):
+        """One launch, its path counted and its key tiles held to the rule."""
+        nonlocal n_tiles
+        path = kernel_path(q, k, v)
+        before = (flash_attention_cuda.launches_tensor, flash_attention_cuda.launches_simt)
+        with tile_count(dev) as tiles:
+            got = flash_attention_cuda(q, k, v, q_pos, kv_pos, causal=causal, kv_valid=kv_valid)
+        torch.cuda.synchronize()
+        after = (flash_attention_cuda.launches_tensor, flash_attention_cuda.launches_simt)
+        check((after[0] - before[0], after[1] - before[1]) == ((1, 0) if path == "tensor"
+                                                               else (0, 1)),
+              f"{what}: the launch went elsewhere than the {path} kernel")
+        B, _, KV, G, Dh = q.shape
+        want = tiles_visited(q_pos, kv_pos, B=B, KV=KV, G=G, Dh=Dh, Dv=v.shape[3], path=path,
+                             causal=causal, kv_valid=kv_valid)
+        check(int(tiles) == want, f"{what}: {int(tiles)} key tiles visited, the rule keeps {want}")
+        paths[path] += 1
+        n_tiles += want
+        return got
+
+    def within(got, want, v) -> torch.Tensor:
+        """Per output: within 4 units of 2^-23 max|v| of want (f32), and one
+        bf16 ulp of the output beyond that (bf16)."""
+        err = (got.float() - want.float()).abs()
+        tol = f32_ulps * 2.0 ** -23 * float(v.float().abs().max())
+        if v.dtype == torch.bfloat16:
+            return err <= bf16_ulp(torch.maximum(got.float().abs(), want.float().abs())) + tol
+        return err <= tol
+
     def held(got, want, v, what) -> float:
         check(got.dtype == want.dtype == v.dtype and got.shape == want.shape,
               f"{what}: output {got.dtype} {tuple(got.shape)}")
         check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
-        err = (got.float() - want.float()).abs()
-        f32_tol = f32_ulps * 2.0 ** -23 * float(v.float().abs().max())
-        if v.dtype == torch.bfloat16:
-            ulp = bf16_ulp(torch.maximum(got.float().abs(), want.float().abs()))
-            check(bool((err <= ulp + f32_tol).all()), f"{what}: beyond one bf16 ulp")
-        else:
-            check(float(err.max()) <= f32_tol, f"{what}: {float(err.max()):.3e} > {f32_tol:.3e}")
-        return float(err.max())
+        err = float((got.float() - want.float()).abs().max())
+        check(bool(within(got, want, v).all()),
+              f"{what}: " + ("beyond one bf16 ulp" if v.dtype == torch.bfloat16 else
+                             f"{err:.3e} > {f32_ulps} units of 2^-23 max|v|"))
+        return err
+
+    # The control for the tensor path's p·v: the plain version with p rounded
+    # once to bf16 (one product, as scaled_dot_product_attention takes it),
+    # which the same comparison must reject wherever the kernel is held, so a
+    # kernel that dropped p's two lower bf16 terms would fail.
+    control = {"cases": 0, "beyond": 1.0, "apart": 1.0, "kernel_apart": 0.0}
+
+    def one_term_rejected(got, want, q, k, v, q_pos, kv_pos, what, causal=True) -> tuple:
+        one = attention_ref(q, k, v, q_pos, kv_pos, causal=causal, p_terms=1)
+        beyond = float((~within(one, want, v)).float().mean())
+        check(beyond > 0, f"{what}: p rounded once to bf16 is held as well; the comparison "
+                          f"cannot tell it from the kernel's three terms")
+        control["cases"] += 1
+        control["beyond"] = min(control["beyond"], beyond)
+        control["apart"] = min(control["apart"], float((one != want).float().mean()))
+        kernel_apart = float((got != want).float().mean())
+        control["kernel_apart"] = max(control["kernel_apart"], kernel_apart)
+        return beyond, float((one != want).float().mean()), kernel_apart
 
     t0 = time.perf_counter()
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
@@ -332,12 +394,11 @@ def flash_phase(dev: torch.device, seed: int) -> dict:
                     q, k, v = inputs(1, S, S, 2, G, Dh, dtype)
                     pos = torch.arange(S, dtype=torch.int32, device=dev)
                     for causal in (True, False):
-                        got = flash_attention_cuda(q, k, v, pos, pos, causal=causal)
+                        what = f"prefill {dtype} G={G} Dh={Dh} S={S} causal={causal}"
+                        got = kernel(q, k, v, pos, pos, what, causal=causal)
                         want = attention_ref(q, k, v, pos, pos, causal=causal)
                         torch.cuda.synchronize()
-                        errs[dtype] = max(errs[dtype], held(
-                            got, want, v, f"prefill {dtype} G={G} Dh={Dh} S={S} "
-                            f"causal={causal}"))
+                        errs[dtype] = max(errs[dtype], held(got, want, v, what))
                         n += 1
                 for T in (1, 2080, 4096):
                     q, k, v = inputs(2, 1, T, 2, G, Dh, dtype)
@@ -350,94 +411,200 @@ def flash_phase(dev: torch.device, seed: int) -> dict:
                         cases.append((ring, ring <= T + 6))
                     for kvp, valid in cases:
                         qp = q_pos + (7 if kvp is not kv_pos else 0)
-                        got = flash_attention_cuda(q, k, v, qp, kvp, kv_valid=valid)
+                        what = f"decode {dtype} G={G} Dh={Dh} T={T}"
+                        got = kernel(q, k, v, qp, kvp, what, kv_valid=valid)
                         want = attention_ref(q, k, v, qp, kvp, kv_valid=valid)
                         torch.cuda.synchronize()
-                        errs[dtype] = max(errs[dtype], held(
-                            got, want, v, f"decode {dtype} G={G} Dh={Dh} T={T}"))
+                        errs[dtype] = max(errs[dtype], held(got, want, v, what))
                         n += 1
     print(f"[flash] {n} cases (f32 and bf16; G in (1, 2, 8); Dh in (64, 128); prefill "
           f"S in (17, 512, 2048) causal and not; decode T in (1, 2080, 4096); wrapped "
           f"rings with kv_valid): max |kernel - plain| f32 {errs[torch.float32]:.3e}, bf16 "
           f"{errs[torch.bfloat16]:.3e}, within 4 units of 2^-23 max|v| (f32) and one bf16 "
-          f"ulp beyond it (bf16) ({time.perf_counter() - t0:.1f} s)")
+          f"ulp beyond it (bf16); launches by path {paths} "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # The tensor-core kernel past one tile and at the model's length: bf16,
+    # S in (300, 2048), causal and not; then rows before every key on it.
+    t0 = time.perf_counter()
+    n_tc, tc_err = 0, 0.0
+    for G in (1, 2, 8):
+        for Dh in (64, 128):
+            for S in (300, 2048):
+                q, k, v = inputs(2, S, S, 2, G, Dh, torch.bfloat16)
+                pos = torch.arange(S, dtype=torch.int32, device=dev)
+                check(kernel_path(q, k, v) == "tensor", f"S={S} G={G}: not the tensor path")
+                for causal in (True, False):
+                    what = f"tensor path G={G} Dh={Dh} S={S} causal={causal}"
+                    got = kernel(q, k, v, pos, pos, what, causal=causal)
+                    want = attention_ref(q, k, v, pos, pos, causal=causal)
+                    torch.cuda.synchronize()
+                    tc_err = max(tc_err, held(got, want, v, what))
+                    one_term_rejected(got, want, q, k, v, pos, pos, what, causal=causal)
+                    n_tc += 1
+    for G in (1, 8):
+        Sq, T = 70, 200                   # the first three queries before every key
+        q, k, v = inputs(1, Sq, T, 2, G, 128, torch.bfloat16)
+        q_pos = torch.arange(-3, Sq - 3, dtype=torch.int32, device=dev) * 3
+        kv_pos = torch.arange(T, dtype=torch.int32, device=dev)
+        what = f"tensor path, rows before every key, G={G}"
+        check(kernel_path(q, k, v) == "tensor", f"{what}: not the tensor path")
+        got = kernel(q, k, v, q_pos, kv_pos, what)
+        want = attention_ref(q, k, v, q_pos, kv_pos)
+        torch.cuda.synchronize()
+        tc_err = max(tc_err, held(got, want, v, what))
+        one_term_rejected(got, want, q, k, v, q_pos, kv_pos, what)
+        mean = v.float().mean(1)[0]       # (KV, Dv)
+        check(all(bool(torch.allclose(got[0, i, :, g].float(), mean,
+                                      atol=float(bf16_ulp(mean).max())))
+                  for i in range(3) for g in range(G)), f"{what}: not the mean of v")
+        n_tc += 1
+    errs[torch.bfloat16] = max(errs[torch.bfloat16], tc_err)
+    print(f"[flash] {n_tc} tensor-path cases (bf16; G in (1, 2, 8); Dh in (64, 128); S in "
+          f"(300, 2048) causal and not; queries before every key, G in (1, 8), the mean of v): "
+          f"max |kernel - plain| {tc_err:.3e}, within one bf16 ulp beyond 4 units of 2^-23 "
+          f"max|v| ({time.perf_counter() - t0:.1f} s)")
+    print(f"[flash] control: the plain version with p rounded once to bf16 (one p·v "
+          f"product) is rejected by the same comparison in all {control['cases']} "
+          f"tensor-path cases, beyond it at a share of the outputs of at least "
+          f"{control['beyond']:.4f}, its bf16 values apart from the plain version's at "
+          f"{control['apart']:.4f} or more; the kernel's apart at most "
+          f"{control['kernel_apart']:.4f}")
 
     # Head dimensions off the dense family's: Dv apart from Dh (MLA's 192 / 128
-    # at deepseek-v2's width, 48 / 32 reduced), odd Dh, and the largest Dh
-    # whose block fits in shared memory; the generic path of the kernel.
+    # at deepseek-v2's width, 48 / 32 reduced), odd Dh, and 559, the largest
+    # Dh before the q·k columns were staged in chunks; the generic path.
     t0 = time.perf_counter()
     n_dims = 0
-    dims = ((192, 128), (48, 32), (96, 96), (40, 24), (MAX_HEAD_DIM, 64))
-    for dtype in errs:
+    dims = ((192, 128), (48, 32), (96, 96), (40, 24), (559, 64))
+    for dtype in (torch.float32, torch.bfloat16):
         for Dh, Dv in dims:
             for G in (1, 2):
                 for Sq, T in ((300, 300), (1, 2080)):
                     q, k, v = inputs(1, Sq, T, 2, G, Dh, dtype, Dv=Dv)
                     kv_pos = torch.arange(T, dtype=torch.int32, device=dev)
                     q_pos = kv_pos[T - Sq:].contiguous()
-                    got = flash_attention_cuda(q, k, v, q_pos, kv_pos)
+                    what = f"{dtype} Dh={Dh} Dv={Dv} G={G} Sq={Sq} T={T}"
+                    got = kernel(q, k, v, q_pos, kv_pos, what)
                     want = attention_ref(q, k, v, q_pos, kv_pos)
                     torch.cuda.synchronize()
-                    errs[dtype] = max(errs[dtype], held(
-                        got, want, v, f"{dtype} Dh={Dh} Dv={Dv} G={G} Sq={Sq} T={T}"))
+                    errs[dtype] = max(errs[dtype], held(got, want, v, what))
                     n_dims += 1
-    print(f"[flash] {n_dims} cases at other head dimensions ((Dh, Dv) in {dims}, "
-          f"{MAX_HEAD_DIM} the largest Dh that fits; G in (1, 2); prefill S = 300 and decode "
-          f"T = 2080; f32 and bf16), same tolerances: max |kernel - plain| f32 "
-          f"{errs[torch.float32]:.3e}, bf16 {errs[torch.bfloat16]:.3e} "
+    print(f"[flash] {n_dims} cases at other head dimensions ((Dh, Dv) in {dims}; G in (1, 2); "
+          f"prefill S = 300 and decode T = 2080; f32 and bf16), same tolerances: max |kernel - "
+          f"plain| f32 {errs[torch.float32]:.3e}, bf16 {errs[torch.bfloat16]:.3e} "
           f"({time.perf_counter() - t0:.1f} s)")
 
-    # Timing at Qwen3-1.7B's shapes, bf16: prefill S = 2048 and decode T = 2080,
-    # each first held against the plain version as the grid above is.
+    # Past the old cap: Dh = 576 (MLA's absorbed q·k width) and 1024, held to
+    # the float64 run of the plain version on the same inputs: the kernel
+    # within twice the plain version's distance from it plus 4 units of
+    # 2^-23 max|v| (and one bf16 ulp of the output for bf16).
+    t0 = time.perf_counter()
+    wide = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for Dh in (576, 1024):
+            for Dv in (64, 512):
+                for Sq, T in ((37, 37), (1, 300)):
+                    q, k, v = inputs(2, Sq, T, 2, 2, Dh, dtype, Dv=Dv)
+                    kv_pos = torch.arange(T, dtype=torch.int32, device=dev)
+                    q_pos = kv_pos[T - Sq:].contiguous()
+                    what = f"{dtype} Dh={Dh} Dv={Dv} Sq={Sq} T={T}"
+                    got = kernel(q, k, v, q_pos, kv_pos, what)
+                    want = attention_ref(q, k, v, q_pos, kv_pos)
+                    exact = attention_ref(q.double(), k.double(), v.double(), q_pos, kv_pos)
+                    torch.cuda.synchronize()
+                    check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+                          f"{what}: output {tuple(got.shape)}, or non-finite")
+                    kd = (got.double() - exact).abs()
+                    pd = float((want.double() - exact).abs().max())
+                    tol = 2 * pd + f32_ulps * 2.0 ** -23 * float(v.float().abs().max())
+                    if dtype == torch.bfloat16:
+                        ok = bool((kd <= bf16_ulp(got.float()).double() + tol).all())
+                    else:
+                        ok = float(kd.max()) <= tol
+                    check(ok, f"{what}: {float(kd.max()):.3e} from float64, plain {pd:.3e}")
+                    wide.append(f"{str(dtype)[6:]} Dh={Dh} Dv={Dv} Sq={Sq}: "
+                                f"{float(kd.max()):.3e} / {pd:.3e}")
+    print(f"[flash] {len(wide)} cases past the old q·k cap of 559 (Dh in (576, 1024), Dv in "
+          f"(64, 512), prefill Sq = 37 and decode T = 300, f32 and bf16), held to float64 "
+          f"(kernel within 2 x the plain version's distance + 4 units of 2^-23 max|v|); "
+          f"|kernel - f64| / |plain - f64|: {'; '.join(wide)} ({time.perf_counter() - t0:.1f} s)")
+    print(f"[flash] every launch above: launches by path {paths}, {n_tiles} key tiles visited, "
+          f"each launch's count equal to the skip rule's plain version (ref.tiles_visited)")
+
+    # Timing at Qwen3-1.7B's shapes: the bf16 prefill (the tensor path) and
+    # decode, and the f32 prefill (the SIMT path), each first held against
+    # the plain version as the grid above is.
     B, KV, G, Dh = 4, 8, 2, 128
     H = KV * G
     out = {"max_abs_err": max(errs.values())}
-    for shape, Sq, T in (("prefill", 2048, 2048), ("decode", 1, 2080)):
-        q, k, v = inputs(B, Sq, T, KV, G, Dh, torch.bfloat16)
+    for shape, Sq, T, dtype in (("prefill", 2048, 2048, torch.bfloat16),
+                                ("decode", 1, 2080, torch.bfloat16),
+                                ("simt_prefill", 2048, 2048, torch.float32)):
+        q, k, v = inputs(B, Sq, T, KV, G, Dh, dtype)
         kv_pos = torch.arange(T, dtype=torch.int32, device=dev)
         q_pos = kv_pos[T - Sq:].contiguous()
-        valid = None if shape == "prefill" else kv_pos <= T - 1
+        valid = None if Sq > 1 else kv_pos <= T - 1
+        path = kernel_path(q, k, v)
         kern = lambda: flash_attention_cuda(q, k, v, q_pos, kv_pos, kv_valid=valid)  # noqa: E731
         plain = lambda: attention_ref(q, k, v, q_pos, kv_pos, kv_valid=valid)  # noqa: E731
         qh = q.reshape(B, Sq, H, Dh).transpose(1, 2).contiguous()
         kh, vh = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
-        causal = shape == "prefill"        # decode: every key is visible
+        causal = Sq > 1                    # decode: every key is visible
         library = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qh, kh, vh, is_causal=causal, enable_gqa=True)
-        mine, want, ref_lib = kern(), plain(), library()
+        what = f"{shape} at Qwen3-1.7B's shapes (B={B} H={H} KV={KV} Dh={Dh} Sq={Sq} T={T})"
+        mine = kernel(q, k, v, q_pos, kv_pos, what, kv_valid=valid)
+        want, ref_lib = plain(), library()
         torch.cuda.synchronize()
-        err = held(mine, want, v, f"{shape} at Qwen3-1.7B's shapes (B={B} H={H} KV={KV} "
-                   f"Dh={Dh} Sq={Sq} T={T} bf16)")
+        err = held(mine, want, v, what)
+        if path == "tensor":
+            beyond, apart, kernel_apart = one_term_rejected(mine, want, q, k, v, q_pos,
+                                                            kv_pos, what)
+            print(f"[flash] control at the {shape} shape: p rounded once to bf16 beyond the "
+                  f"comparison at a share {beyond:.4f} of the outputs, apart from the plain "
+                  f"version's bf16 values at {apart:.4f}; the kernel held, apart at "
+                  f"{kernel_apart:.4f}")
         out["max_abs_err"] = max(out["max_abs_err"], err)
         lib_err = float((ref_lib.transpose(1, 2).reshape(mine.shape).float()
                          - mine.float()).abs().max())
         check(lib_err <= 0.1 * float(mine.float().abs().max()),
               f"{shape}: the library call computes another function ({lib_err:.3e} away)")
         del want, ref_lib
-        ms = cuda_ms(kern, 5 if shape == "prefill" else 50)
-        plain_ms = cuda_ms(plain, 3 if shape == "prefill" else 20)
-        lib_ms = cuda_ms(library, 5 if shape == "prefill" else 50)
-        # The operations at the inputs' own rates: q·kᵀ multiplies bf16 by
-        # bf16, exact in f32, so the tensor cores' f32-accumulating rate
-        # holds; p·v multiplies the f32 weights p, so the f32 rate does.
+        ms = cuda_ms(kern, 20 if Sq > 1 else 50)
+        plain_ms = cuda_ms(plain, 3 if Sq > 1 else 20)
+        lib_ms = cuda_ms(library, 20 if Sq > 1 else 50)
         pairs = int((kv_pos[None, :] <= q_pos[:, None]).sum())     # visible, per head
-        flops = 4 * B * H * Dh * pairs                 # q·kᵀ and p·v, 2 FLOP an FMA
+        flops = 2 * B * H * Dh * pairs                 # one product, 2 FLOP an FMA
         nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, mine, q_pos, kv_pos))
         nbytes += 0 if valid is None else valid.numel()
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = (flops / 2 / BF16_FLOPS + flops / 2 / F32_FLOPS) * 1e3
+        # The same f32-accurate work at the least: on bf16 inputs q·kᵀ is one
+        # bf16 tensor-core product and p·v three (p split into three bf16
+        # terms, v exact); on f32 inputs both products run at the f32 rate.
+        # The old bound, of the f32 design, took p·v at the f32 rate beside q·kᵀ on the
+        # tensor cores.
+        if dtype == torch.bfloat16:
+            ops_ms = 4 * flops / BF16_FLOPS * 1e3
+        else:
+            ops_ms = 2 * flops / F32_FLOPS * 1e3
+        old_ms = max(bytes_ms, (flops / BF16_FLOPS + flops / F32_FLOPS) * 1e3)
         bound_ms = max(bytes_ms, ops_ms)
         bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-        print(f"[flash] {shape} B={B} H={H} KV={KV} Dh={Dh} Sq={Sq} T={T} bf16: kernel "
-              f"{ms:.4f} ms ({err:.3e} from the plain version, within the grid's tolerance), "
-              f"plain version {plain_ms:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} ms "
-              f"(enable_gqa; {lib_err:.2e} from the kernel); bound {bound_ms:.4f} ms by "
-              f"{bound_by} ({nbytes} B at 3.35 TB/s = {bytes_ms:.4f} ms; {flops} FLOP, q·kᵀ on "
-              f"bf16 tensor cores at 989 TFLOP/s and p·v in f32 at 67 TFLOP/s = {ops_ms:.4f} "
-              f"ms; all in f32 {flops / F32_FLOPS * 1e3:.4f} ms, all on bf16 tensor cores "
-              f"{flops / BF16_FLOPS * 1e3:.4f} ms)")
+        print(f"[flash] {shape} B={B} H={H} KV={KV} Dh={Dh} Sq={Sq} T={T} {str(dtype)[6:]} on "
+              f"the {path} kernel: {ms:.4f} ms ({err:.3e} from the plain version, within the "
+              f"grid's tolerance), plain version {plain_ms:.4f} ms, "
+              f"scaled_dot_product_attention {lib_ms:.4f} ms (enable_gqa, CUDA events; "
+              f"{lib_err:.2e} from the kernel; it rounds p to bf16 for one p·v product, so it "
+              f"may run under the bound); bound {bound_ms:.4f} ms by {bound_by} ({nbytes} B at "
+              f"3.35 TB/s = {bytes_ms:.4f} ms; {flops} FLOP a product, "
+              + ("q·kᵀ and p·v as 1 + 3 bf16 tensor-core products at 989 TFLOP/s"
+                 if dtype == torch.bfloat16 else "q·kᵀ and p·v at the f32 67 TFLOP/s")
+              + f" = {ops_ms:.4f} ms); the old bound (p·v at the f32 rate) "
+              f"{old_ms:.4f} ms")
         out[shape] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                      "bound_ms": bound_ms, "bound_by": bound_by}
+                      "bound_ms": bound_ms, "bound_by": bound_by, "old_bound_ms": old_ms,
+                      "path": path}
     return out
 
 
@@ -487,19 +654,29 @@ def model_phase(dev: torch.device, seed: int, reset_counts, read_counts) -> dict
     torch.cuda.synchronize()
     decode_ms = (time.perf_counter() - t0) * 1e3 / steps
     counts = read_counts("full-width serving", flash_call=cfg.n_layers * (1 + steps))
+    by_path = (flash_attention_cuda.launches_tensor, flash_attention_cuda.launches_simt)
+    check(by_path == (cfg.n_layers, cfg.n_layers * steps),
+          f"flash launches by path (tensor, simt) {by_path}: want the prefill's "
+          f"{cfg.n_layers} on the tensor kernel and the decode's {cfg.n_layers * steps} on "
+          f"the SIMT one")
     peak = torch.cuda.max_memory_allocated() - held_before
     check(all(bool(torch.isfinite(x).all()) for x in kernel_logits), "non-finite logits")
     print(f"[model] prefill {B} x {S} tokens: {prefill_ms:.1f} ms ({B * S / prefill_ms * 1e3:.0f} "
           f"tokens/s); {steps} greedy decode steps: {decode_ms:.3f} ms a step "
           f"({B / decode_ms * 1e3:.1f} tokens/s); flash kernel launches {counts['flash_call']} "
-          f"= {cfg.n_layers} x (1 + {steps}); peak device memory of the model, its cache and "
-          f"the run {peak / 2**30:.2f} GiB (host clock after a synchronize)")
+          f"= {cfg.n_layers} x (1 + {steps}), by path: {by_path[0]} on the tensor kernel "
+          f"(the prefill), {by_path[1]} on the SIMT kernel (the decode); peak device memory of "
+          f"the model, its cache and the run {peak / 2**30:.2f} GiB (host clock after a "
+          f"synchronize)")
 
     # The kernel's share of a decode step and the device's busy share, over
-    # two steps that rewrite the last two positions.
+    # two steps that rewrite the last two positions; then one prefill.
+    def is_flash(name: str) -> bool:
+        return "flash_tc_kernel" in name or "flash_simt_kernel" in name
+
     wall, busy, rows, n_kernels = device_busy(
         lambda: [model.decode_step(fed[i], S + i, cache) for i in (steps - 2, steps - 1)])
-    flash_dev = sum(ms for name, ms in rows if "flash_attention" in name)
+    flash_dev = sum(ms for name, ms in rows if is_flash(name))
     print(f"[model] two decode steps under the profiler: {wall:.3f} ms wall, device busy "
           f"{busy:.3f} ms ({100 * busy / wall:.1f}%), the flash kernel {flash_dev:.3f} ms "
           f"({100 * flash_dev / max(busy, 1e-9):.1f}% of the busy time); {n_kernels // 2} "
@@ -507,6 +684,15 @@ def model_phase(dev: torch.device, seed: int, reset_counts, read_counts) -> dict
     for name, ms in rows[:4]:
         print(f"[model]   {ms / 2:.4f} ms a step  {name[:90]}")
     del cache
+    wall, busy, rows, n_kernels = device_busy(
+        lambda: model.prefill({"tokens": tokens}, model.init_cache(B, S + steps)))
+    flash_dev = sum(ms for name, ms in rows if is_flash(name))
+    print(f"[model] one prefill under the profiler: {wall:.3f} ms wall, device busy {busy:.3f} "
+          f"ms ({100 * busy / wall:.1f}%), the flash kernel {flash_dev:.3f} ms "
+          f"({100 * flash_dev / max(busy, 1e-9):.1f}% of the busy time); {n_kernels} kernels; "
+          f"busiest:")
+    for name, ms in rows[:5]:
+        print(f"[model]   {ms:.4f} ms  {name[:90]}")
 
     # The same prefill and first steps with the attention on the plain
     # version, and in f32 on the same weights, fed the same tokens.
@@ -566,8 +752,8 @@ def model_phase(dev: torch.device, seed: int, reset_counts, read_counts) -> dict
     print(f"[model] WaveBatcher, 4 slots: 8 requests (prompts of 16-64 tokens, 16 new each) "
           f"in {wb.ticks} ticks, {wave_ms:.1f} ms ({8 * 16 / wave_ms * 1e3:.1f} generated "
           f"tokens/s, {wave_ms / wb.ticks:.3f} ms a tick)")
-    return {"launches": counts["flash_call"], "prefill_ms": prefill_ms,
-            "decode_ms": decode_ms}
+    return {"launches": counts["flash_call"], "launches_tensor": by_path[0],
+            "launches_simt": by_path[1], "prefill_ms": prefill_ms, "decode_ms": decode_ms}
 
 
 # The rules of phase 8's gradient anchor (serving_anchors): the float64
@@ -1010,6 +1196,7 @@ def main() -> int:
     def reset_counts() -> None:
         for w in wrappers.values():
             w.launches = 0
+        flash_attention_cuda.launches_tensor = flash_attention_cuda.launches_simt = 0
 
     def read_counts(what: str, **want: int) -> dict[str, int]:
         """The launch counts after a path's run: each kernel named in
@@ -2275,8 +2462,12 @@ def main() -> int:
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:70",
         "also_replaces": "src/repro/models/attention.py:29", "launches": served["launches"],
-        "max_abs_err": flash["max_abs_err"], **flash["prefill"],
-        **{f"decode_{k}": v for k, v in flash["decode"].items()}})
+        "launches_tensor": served["launches_tensor"], "launches_simt": served["launches_simt"],
+        "max_abs_err": flash["max_abs_err"],
+        **{k: v for k, v in flash["prefill"].items() if k != "path"},
+        "prefill_path": flash["prefill"]["path"],
+        **{f"decode_{k}": v for k, v in flash["decode"].items()},
+        **{f"simt_prefill_{k}": v for k, v in flash["simt_prefill"].items()}})
     kernels.append({
         "name": "block_matmul.matmul_kernel_call", "route": "cuda",
         "source": "src/repro_torch/kernels/block_matmul/csrc/block_matmul.cu",

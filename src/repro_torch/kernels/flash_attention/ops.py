@@ -1,4 +1,4 @@
-"""The wrapper of the CUDA flash-attention kernel.
+"""The wrapper of the CUDA flash-attention kernels.
 
 :func:`flash_attention_cuda` takes the layout of the JAX package's
 ``models/attention.sdpa_chunked`` (q ``(B, Sq, KV, G, Dh)``, k ``(B, T,
@@ -7,15 +7,21 @@ KV, Dh)``, v ``(B, T, KV, Dv)``, ``q_pos (Sq,)``, ``kv_pos (T,)``, optional
 (``repro_torch.models.attention.sdpa_chunked`` calls it).  It replaces the
 TPU kernel ``flash_call`` (``src/repro/kernels/flash_attention/kernel.py:70``).
 
-For tensors on a CUDA device it launches ``csrc/flash_attention.cu`` or
-raises; for tensors on the CPU it runs the plain version
-(:func:`.ref.attention_ref`).  There is no other path: a failed build or
-launch is an error, never a fallback.  ``flash_attention_cuda.launches``
-counts its kernel launches and nothing else.
+For tensors on a CUDA device it launches one of the two kernels of
+``csrc/flash_attention.cu`` or raises; which one is a matter of shape
+(:func:`kernel_path`): the tensor-core prefill for bf16 with ``Dh = Dv`` in
+{64, 128} and ``Sq·G >= 64``, the SIMT kernel for everything else.  For
+tensors on the CPU it runs the plain version (:func:`.ref.attention_ref`).
+There is no other path: a failed build or launch is an error, never a
+fallback.  ``flash_attention_cuda.launches`` counts the kernels' launches
+and nothing else, ``launches_tensor`` and ``launches_simt`` each path's.
 
-:func:`plain_version` is a test hook, not a user setting: inside it, CUDA
-tensors too go to the plain version (``chip_smoke.py`` runs the model once
-so, to hold the kernel's logits against the plain version's).
+:func:`plain_version` and :func:`tile_count` are test hooks, not user
+settings: inside the first, CUDA tensors too go to the plain version
+(``chip_smoke.py`` runs the model once so, to hold the kernel's logits
+against the plain version's); inside the second, each launch adds the key
+tiles its blocks visited to a counter on the card, which the tests hold
+against the skip rule's plain version (:func:`.ref.tiles_visited`).
 """
 from __future__ import annotations
 
@@ -29,24 +35,12 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ref
 
-__all__ = ["flash_attention_cuda", "plain_version", "MAX_HEAD_DIM", "MAX_GROUP"]
+__all__ = ["flash_attention_cuda", "kernel_path", "plain_version", "tile_count", "MAX_GROUP"]
 
-# The most query heads one KV head may carry (one block holds 64 (query,
-# head) rows), and the largest q·k head dimension whose block fits in the
-# 232,448 bytes of shared memory a block may use: a block stages 64 query
-# rows and 32 key rows of Dh + 1 floats, 32 value rows of 64 floats and
-# the 64 x 33 weights (_smem_bytes).  v's head dimension has no limit: a
-# block owns 64 of its columns and the grid covers the rest.
+# The most query heads one KV head may carry: one block holds 64 (query,
+# head) rows.  Neither head dimension has a limit: the SIMT kernel stages
+# q·k 64 columns at a time and gives each block 64 columns of v.
 MAX_GROUP = 64
-
-
-def _smem_bytes(dh: int, dvc: int = 64) -> int:
-    """Shared memory of a block at q·k head dimension ``dh`` with ``dvc``
-    v columns a block (as ``smem_bytes`` in the source)."""
-    return 4 * (64 * (dh + 1) + 32 * (dh + 1) + 32 * dvc + 64 * 33) + 4 * (64 + 32) + 32
-
-
-MAX_HEAD_DIM = max(dh for dh in range(1, 1024) if _smem_bytes(dh) <= build.MAX_SMEM_BYTES)
 
 _route_to_plain = False
 
@@ -62,14 +56,33 @@ def plain_version():
         _route_to_plain = before
 
 
+_tiles: torch.Tensor | None = None
+
+
+@contextlib.contextmanager
+def tile_count(device: torch.device | str):
+    """Test hook: yields a one-element int64 tensor on ``device`` to which
+    every launch inside adds the number of key tiles its blocks visited."""
+    global _tiles
+    before, _tiles = _tiles, torch.zeros(1, dtype=torch.int64, device=device)
+    try:
+        yield _tiles
+    finally:
+        _tiles = before
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.library("flash_attention")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32,
                                            i32, i32, i32, i32, i32, i32, i32,
-                                           ctypes.c_float, ptr]
+                                           ctypes.c_float, ptr, ptr]
     lib.flash_attention_launch.restype = ctypes.c_int
+    lib.flash_attention_tc_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32,
+                                              i32, i32, i32, i32, i32, ctypes.c_float, ptr,
+                                              ptr]
+    lib.flash_attention_tc_launch.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -109,16 +122,24 @@ def _check(q, k, v, q_pos, kv_pos, kv_valid) -> None:
     if min(B, Sq, KV, G, T, Dh, v.shape[3]) < 1:
         raise ValueError(f"empty attention: q {tuple(q.shape)}, k {tuple(k.shape)}")
     if dev.type == "cuda":
-        if Dh > MAX_HEAD_DIM:
-            raise ValueError(f"q·k head dimension {Dh} past the kernel's {MAX_HEAD_DIM}: "
-                             f"its block would need {_smem_bytes(Dh)} bytes of shared "
-                             f"memory, {build.MAX_SMEM_BYTES} are there")
         if G > MAX_GROUP:
             raise ValueError(f"{G} query heads per KV head; the kernel takes {MAX_GROUP}")
         if B > 65535 or KV > 65535:
             raise ValueError(f"batch {B} or KV heads {KV} past the grid's 65535")
     elif dev.type != "cpu":
         raise ValueError(f"no attention for device {dev}")
+
+
+def kernel_path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel that takes these inputs on the card: ``"tensor"`` (the
+    tensor-core prefill) for bf16 with ``Dh = Dv`` in {64, 128}, ``Sq·G >=
+    64`` and q, k and v on 16-byte boundaries (as any tensor that starts its
+    own storage is), else ``"simt"``."""
+    _, Sq, _, G, Dh = q.shape
+    if (q.dtype == torch.bfloat16 and Dh == v.shape[3] and Dh in (64, 128) and Sq * G >= 64
+            and all(t.data_ptr() % 16 == 0 for t in (q, k, v))):
+        return "tensor"
+    return "simt"
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -129,12 +150,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (see :func:`.ref.attention_ref`), out ``(B, Sq, KV, G, Dv)`` in v's dtype.
 
     CUDA tensors: f32 or bf16, q, k and v alike; int32 positions; bool
-    ``kv_valid``; all contiguous; any ``Dv``, and ``Dh`` up to
-    :data:`MAX_HEAD_DIM` (64 and 128 with ``Dv = Dh`` have instantiations
-    of their own, every other pair the generic path); at most
-    :data:`MAX_GROUP` query heads per KV head.  The kernel tiles the keys
-    itself, so ``chunk`` (the plain version's query chunk) does not change
-    what it computes.  CPU tensors (also float64) run the plain version.
+    ``kv_valid``; all contiguous; any ``Dh`` and ``Dv``; at most
+    :data:`MAX_GROUP` query heads per KV head.  :func:`kernel_path` names
+    the kernel.  The kernels tile the keys themselves, so ``chunk`` (the
+    plain version's query chunk) does not change what they compute.  CPU
+    tensors (also float64) run the plain version.
     """
     _check(q, k, v, q_pos, kv_pos, kv_valid)
     if q.device.type == "cpu" or _route_to_plain:
@@ -142,21 +162,34 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  chunk=chunk)
     lib = _lib()
     B, Sq, KV, G, Dh = q.shape
-    Dv = v.shape[3]
+    T, Dv = k.shape[1], v.shape[3]
+    path = kernel_path(q, k, v)
     out = torch.empty((B, Sq, KV, G, Dv), dtype=v.dtype, device=q.device)
     scale = float(torch.tensor(1.0 / math.sqrt(Dh), dtype=torch.float32))
+    counter = None if _tiles is None else _tiles.data_ptr()
+    valid = None if kv_valid is None else kv_valid.data_ptr()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
-            None if kv_valid is None else kv_valid.data_ptr(), out.data_ptr(), B, Sq,
-            k.shape[1], KV, G, Dh, Dv, int(q.dtype == torch.bfloat16), int(bool(causal)),
-            scale, stream)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
+                valid, out.data_ptr(), B, Sq, T, KV, G)
+        if path == "tensor":
+            rc = lib.flash_attention_tc_launch(*args, Dh, int(bool(causal)), scale, counter,
+                                               stream)
+        else:
+            rc = lib.flash_attention_launch(*args, Dh, Dv, int(q.dtype == torch.bfloat16),
+                                            int(bool(causal)), scale, counter, stream)
     if rc != 0:
         msg = lib.flash_attention_error_string(rc).decode()
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc} ({msg})")
+        raise RuntimeError(f"flash_attention {path} kernel launch failed: CUDA error {rc} "
+                           f"({msg})")
     flash_attention_cuda.launches += 1
+    if path == "tensor":
+        flash_attention_cuda.launches_tensor += 1
+    else:
+        flash_attention_cuda.launches_simt += 1
     return out
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.launches_tensor = 0
+flash_attention_cuda.launches_simt = 0

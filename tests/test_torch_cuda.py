@@ -597,8 +597,8 @@ def test_seeded_encode_past_the_old_caps(cuda, name):
 # beyond that f32 bound.
 
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention_cuda  # noqa: E402
-from repro_torch.kernels.flash_attention.ops import MAX_HEAD_DIM  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import bf16_ulp  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import kernel_path, tile_count  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import bf16_ulp, tiles_visited  # noqa: E402
 
 FLASH_F32_ULPS = 4
 
@@ -611,30 +611,71 @@ def _flash_inputs(B, Sq, T, KV, G, Dh, dtype, seed, dev, Dv=None):
     return q, k, v
 
 
-def _flash_close(got, want, v):
-    assert got.dtype == want.dtype == v.dtype and got.shape == want.shape
-    assert bool(torch.isfinite(got).all())
+def _flash_within(got, want, v):
+    # per output: the f32 bound, and one bf16 ulp of the output beyond it (bf16)
     err = (got.float() - want.float()).abs()
     f32_tol = FLASH_F32_ULPS * 2.0 ** -23 * float(v.float().abs().max())
     if v.dtype == torch.bfloat16:
-        ulp = bf16_ulp(torch.maximum(got.float().abs(), want.float().abs()))
-        assert bool((err <= ulp + f32_tol).all())
+        return err <= bf16_ulp(torch.maximum(got.float().abs(), want.float().abs())) + f32_tol
+    return err <= f32_tol
+
+
+def _flash_close(got, want, v):
+    assert got.dtype == want.dtype == v.dtype and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    assert bool(_flash_within(got, want, v).all())
+
+
+def _flash_anchored(got, want, q, k, v, q_pos, kv_pos, **kw):
+    # Past the old head-dimension cap the scores' f32 rounding grows with
+    # Dh: the kernel within twice the plain version's distance from the
+    # float64 run of the plain version on the same inputs, plus
+    # FLASH_F32_ULPS units of 2⁻²³·max|v| (and one bf16 ulp for bf16).
+    assert got.dtype == want.dtype == v.dtype and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    exact = attention_ref(q.double(), k.double(), v.double(), q_pos, kv_pos, **kw)
+    tol = (2 * float((want.double() - exact).abs().max())
+           + FLASH_F32_ULPS * 2.0 ** -23 * float(v.float().abs().max()))
+    err = (got.double() - exact).abs()
+    if v.dtype == torch.bfloat16:
+        assert bool((err <= bf16_ulp(got.float()).double() + tol).all())
     else:
-        assert float(err.max()) <= f32_tol
+        assert float(err.max()) <= tol
+
+
+def _flash_path_ran(before, path):
+    # the wrapper's counts by path: one launch, on `path`
+    after = (flash_attention_cuda.launches_tensor, flash_attention_cuda.launches_simt)
+    assert (after[0] - before[0], after[1] - before[1]) == \
+        ((1, 0) if path == "tensor" else (0, 1))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("G", [1, 2, 8])
 @pytest.mark.parametrize("Dh", [64, 128])
-@pytest.mark.parametrize("S", [17, 100])
+@pytest.mark.parametrize("S", [17, 100, 300])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_prefill_matches_plain(cuda, dtype, G, Dh, S, causal):
+    # bf16 with S·G >= 64 takes the tensor-core kernel, the rest the SIMT one
     q, k, v = _flash_inputs(2, S, S, 2, G, Dh, dtype, S + G + Dh, cuda)
     pos = torch.arange(S, dtype=torch.int32, device=cuda)
-    got = flash_attention_cuda(q, k, v, pos, pos, causal=causal)
+    path = "tensor" if dtype == torch.bfloat16 and S * G >= 64 else "simt"
+    assert kernel_path(q, k, v) == path
+    before = (flash_attention_cuda.launches_tensor, flash_attention_cuda.launches_simt)
+    with tile_count(cuda) as tiles:
+        got = flash_attention_cuda(q, k, v, pos, pos, causal=causal)
     want = attention_ref(q, k, v, pos, pos, causal=causal)
     torch.cuda.synchronize()
     _flash_close(got, want, v)
+    _flash_path_ran(before, path)
+    assert int(tiles) == tiles_visited(pos, pos, B=2, KV=2, G=G, Dh=Dh, Dv=Dh, path=path,
+                                       causal=causal)
+    if path == "tensor":
+        # The control: p rounded once to bf16 (one p·v product, as
+        # scaled_dot_product_attention takes it) must fail the comparison that
+        # holds the kernel's three bf16 terms of p.
+        one = attention_ref(q, k, v, pos, pos, causal=causal, p_terms=1)
+        assert not bool(_flash_within(one, want, v).all())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -652,27 +693,38 @@ def test_flash_decode_and_ring_match_plain(cuda, dtype, T):
         cases.append((ring, ring <= p))
     q_pos = torch.full((1,), p, dtype=torch.int32, device=cuda)
     for kvp, valid in cases:
-        got = flash_attention_cuda(q, k, v, q_pos, kvp, causal=True, kv_valid=valid)
+        with tile_count(cuda) as tiles:
+            got = flash_attention_cuda(q, k, v, q_pos, kvp, causal=True, kv_valid=valid)
         want = attention_ref(q, k, v, q_pos, kvp, causal=True, kv_valid=valid)
         torch.cuda.synchronize()
         _flash_close(got, want, v)
+        assert int(tiles) == tiles_visited(q_pos, kvp, B=3, KV=4, G=2, Dh=128, Dv=128,
+                                           path="simt", kv_valid=valid)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("Dh,Dv", [(192, 128), (48, 32), (96, 96), (40, 24), (64, 200),
-                                   (MAX_HEAD_DIM, 64)])
+                                   (559, 64), (576, 64), (576, 512), (1024, 64), (1024, 512)])
 @pytest.mark.parametrize("G", [1, 2])
 def test_flash_any_head_dims_match_plain(cuda, dtype, Dh, Dv, G):
-    # the generic path: Dh read at run time, v taken 64 columns a block
+    # the generic path: q·k 64 columns at a time, v 64 columns a block.
+    # 559 was the largest Dh before; 576 (MLA's absorbed q·k width) and 1024
+    # lie past it and are held to the float64 anchor.
     for Sq, T in ((37, 37), (1, 300)):
         q, k, v = _flash_inputs(2, Sq, T, 2, G, Dh, dtype, Dh + Dv + G, cuda, Dv=Dv)
         q_pos = torch.arange(T - Sq, T, dtype=torch.int32, device=cuda)
         kv_pos = torch.arange(T, dtype=torch.int32, device=cuda)
-        got = flash_attention_cuda(q, k, v, q_pos, kv_pos, causal=True)
+        with tile_count(cuda) as tiles:
+            got = flash_attention_cuda(q, k, v, q_pos, kv_pos, causal=True)
         want = attention_ref(q, k, v, q_pos, kv_pos, causal=True)
         torch.cuda.synchronize()
         assert got.shape == (2, Sq, 2, G, Dv)
-        _flash_close(got, want, v)
+        if Dh > 559:
+            _flash_anchored(got, want, q, k, v, q_pos, kv_pos, causal=True)
+        else:
+            _flash_close(got, want, v)
+        assert int(tiles) == tiles_visited(q_pos, kv_pos, B=2, KV=2, G=G, Dh=Dh, Dv=Dv,
+                                           path=kernel_path(q, k, v))
 
 
 def test_flash_rows_with_every_key_masked_stay_finite(cuda):
@@ -688,18 +740,43 @@ def test_flash_rows_with_every_key_masked_stay_finite(cuda):
     assert torch.allclose(got[0, 0, 0, 0], v[0, :, 0].mean(0), atol=1e-5)
 
 
+@pytest.mark.parametrize("G", [1, 8])
+def test_flash_tensor_path_rows_with_every_key_masked_are_the_mean_of_v(cuda, G):
+    # The same on the tensor-core kernel: 70 queries, the first three before
+    # every key, over 200 keys (a partial last tile).
+    Sq, T = 70, 200
+    q, k, v = _flash_inputs(1, Sq, T, 2, G, 128, torch.bfloat16, 5 + G, cuda)
+    q_pos = torch.arange(-3, Sq - 3, dtype=torch.int32, device=cuda) * 3
+    kv_pos = torch.arange(T, dtype=torch.int32, device=cuda)
+    assert kernel_path(q, k, v) == "tensor"
+    got = flash_attention_cuda(q, k, v, q_pos, kv_pos, causal=True)
+    want = attention_ref(q, k, v, q_pos, kv_pos, causal=True)
+    torch.cuda.synchronize()
+    _flash_close(got, want, v)
+    mean = v.float().mean(1)                                  # (1, KV, Dv)
+    for i in range(3):
+        for g in range(G):
+            assert torch.allclose(got[0, i, :, g].float(), mean[0],
+                                  atol=float(bf16_ulp(mean).max()))
+
+
 def test_flash_wrapper_counts_and_rejects(cuda):
     q, k, v = _flash_inputs(1, 4, 4, 1, 2, 64, torch.float32, 4, cuda)
     pos = torch.arange(4, dtype=torch.int32, device=cuda)
     before = flash_attention_cuda.launches
+    counts = (flash_attention_cuda.launches_tensor, flash_attention_cuda.launches_simt)
     flash_attention_cuda(q, k, v, pos, pos)
     flash_attention_cuda(q.cpu(), k.cpu(), v.cpu(), pos.cpu(), pos.cpu())
     assert flash_attention_cuda.launches - before == 1
+    _flash_path_ran(counts, "simt")
+    # Dh = 560, one past the old cap, now computes
+    wide_q, wide_k = _flash_inputs(1, 4, 4, 1, 2, 560, torch.float32, 5, cuda)[:2]
+    got = flash_attention_cuda(wide_q, wide_k, v, pos, pos)
+    want = attention_ref(wide_q, wide_k, v, pos, pos)
+    torch.cuda.synchronize()
+    _flash_anchored(got, want, wide_q, wide_k, v, pos, pos)
     for bad in (lambda: flash_attention_cuda(q.half(), k.half(), v.half(), pos, pos),
                 lambda: flash_attention_cuda(q.double(), k.double(), v.double(), pos, pos),
-                lambda: flash_attention_cuda(*(torch.zeros(x.shape[:-1] + (MAX_HEAD_DIM + 1,),
-                                                           device=cuda) for x in (q, k)), v,
-                                             pos, pos),
                 lambda: flash_attention_cuda(q, k, v, pos.long(), pos),
                 lambda: flash_attention_cuda(q, k.cpu(), v, pos, pos)):
         with pytest.raises(ValueError):

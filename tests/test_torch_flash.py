@@ -58,18 +58,23 @@ def _pair(a, dtype):
     return j, t
 
 
+def _excess(got: np.ndarray, want: np.ndarray, v: np.ndarray, dtype: str) -> float:
+    """How far ``got`` lies beyond its tolerance about ``want`` at its worst
+    output: at most 0 when held."""
+    err = np.abs(got - want)
+    tol = F32_ULPS * 2.0 ** -23 * np.abs(v).max()
+    if dtype == "bf16":
+        tol = tol + bf16_ulp(torch.from_numpy(np.maximum(np.abs(got), np.abs(want)))).numpy()
+    return float((err - tol).max())
+
+
 def _close(got: torch.Tensor, want, v: np.ndarray, dtype: str):
     want = np.asarray(want, np.float32)
     assert got.dtype == (torch.bfloat16 if dtype == "bf16" else torch.float32)
     got = got.float().numpy()
     assert got.shape == want.shape and np.isfinite(got).all()
-    err = np.abs(got - want)
-    f32_tol = F32_ULPS * 2.0 ** -23 * np.abs(v).max()
-    if dtype == "bf16":
-        ulp = bf16_ulp(torch.from_numpy(np.maximum(np.abs(got), np.abs(want)))).numpy()
-        assert (err <= ulp + f32_tol).all(), float((err - ulp).max())
-    else:
-        assert err.max() <= f32_tol, err.max()
+    excess = _excess(got, want, v, dtype)
+    assert excess <= 0, excess
 
 
 CASES = [  # causal, G, Sq, Sk, Dh, dtype
@@ -91,6 +96,28 @@ def test_plain_version_matches_jax_flash_kernel(causal, G, Sq, Sk, Dh, dtype):
     got = flash_attention_cuda(tq, tk, tv, torch.arange(Sq, dtype=torch.int32),
                                torch.arange(Sk, dtype=torch.int32), causal=causal)
     _close(got, np.asarray(want, np.float32).reshape(B, Sq, KV, G, Dh), v, dtype)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("Dh", [64, 128])
+def test_p_rounded_once_to_bf16_fails_the_bf16_comparison(causal, G, Dh):
+    # The tensor-core kernel takes p·v as three bf16 products (p = p1 + p2 +
+    # p3).  Against the JAX Pallas kernel (p·v in f32), the plain version of
+    # that split holds the bf16 comparison and the control, p rounded once
+    # to bf16 (one product, as scaled_dot_product_attention takes it), does
+    # not: the comparison sees p's precision.
+    B, KV, S = 2, 2, 100
+    q, k, v = _inputs(B, S, S, KV, G, Dh, seed=[G, Dh, int(causal), 23])
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, "bf16") for a in (q, k, v))
+    want = np.asarray(flash_attention(jq.reshape(B, S, KV * G, Dh), jk, jv, causal=causal,
+                                      interpret=True), np.float32).reshape(B, S, KV, G, Dh)
+    pos = torch.arange(S, dtype=torch.int32)
+    v_bf16 = tv.float().numpy()
+    split, one = (attention_ref(tq, tk, tv, pos, pos, causal=causal, p_terms=n).float().numpy()
+                  for n in (3, 1))
+    assert _excess(split, want, v_bf16, "bf16") <= 0
+    assert _excess(one, want, v_bf16, "bf16") > 0
 
 
 @pytest.mark.parametrize("causal,G,Dh,dtype", [(True, 2, 48, "f32"), (False, 1, 40, "f32"),
@@ -224,3 +251,162 @@ def test_cpu_tensors_run_the_plain_version_and_count_nothing():
     got = flash_attention_cuda(q, k, v, pos, pos)
     assert flash_attention_cuda.launches == before
     assert torch.equal(got, attention_ref(q, k, v, pos, pos))
+
+
+# ------------------------------------------------------------- the causal skip
+# The kernels skip a key tile when no key in it is visible to any row of the
+# block and every row has met a visible key before it
+# (ref.visited_tiles, the rule's plain version).  On causal prefill with
+# ascending positions that is the loop range of JAX's flash_call at the same
+# tile sizes; anywhere, an online softmax over only the kept tiles is the
+# full softmax.
+
+from repro.kernels.flash_attention.kernel import flash_call  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (TILE_KEYS, query_tiles,  # noqa: E402
+                                                     tiles_visited, visited_tiles)
+
+
+@pytest.mark.parametrize("path", ["tensor", "simt"])
+@pytest.mark.parametrize("G", [1, 2, 8])
+@pytest.mark.parametrize("causal", [True, False])
+def test_skip_rule_keeps_jax_flash_calls_loop_range(path, G, causal):
+    # Which key tiles flash_call reads, seen from outside: batch-head b
+    # carries NaN in v's key tile b, and a query tile's output is NaN where
+    # its loop read that tile (p·v with any p, 0 included, is NaN there).
+    S, bk = 128, TILE_KEYS[path]
+    bq = query_tiles(S, G)[0].stop
+    n_kv = S // bk
+    rng = np.random.default_rng([S, bk, G])
+    q = rng.standard_normal((n_kv, S, 32)).astype(np.float32)
+    k = rng.standard_normal((n_kv, S, 32)).astype(np.float32)
+    v = rng.standard_normal((n_kv, S, 32)).astype(np.float32)
+    for j in range(n_kv):
+        v[j, j * bk:(j + 1) * bk] = np.nan
+    out = np.asarray(flash_call(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), bq=bq, bk=bk,
+                                causal=causal, interpret=True))
+    pos = torch.arange(S, dtype=torch.int32)
+    for i, rows in enumerate(query_tiles(S, G)):
+        read = [j for j in range(n_kv) if np.isnan(out[j, rows.start:rows.stop]).any()]
+        kept = visited_tiles(pos[rows.start:rows.stop], pos, bk=bk, causal=causal)
+        assert kept == read, (i, kept, read)
+        if causal:                        # kernel.py:38, upper
+            assert len(kept) == min(n_kv, (i * bq + bq + bk - 1) // bk)
+
+
+def _online_over_kept(q, k, v, q_pos, kv_pos, *, causal, kv_valid, bk):
+    """float64 attention by the kernels' online softmax, block by block,
+    over only the key tiles ref.visited_tiles keeps."""
+    B, Sq, KV, G, Dh = q.shape
+    T = k.shape[1]
+    scale = 1.0 / np.sqrt(Dh)
+    valid = np.ones(T, bool) if kv_valid is None else kv_valid
+    out = np.zeros(q.shape[:4] + (v.shape[3],))
+    n_kept = 0
+    for rows in query_tiles(Sq, G):
+        qb = q[:, rows.start:rows.stop]                       # (B, bq, KV, G, Dh)
+        qp = q_pos[rows.start:rows.stop]
+        m = np.full(qb.shape[:4], -1e30)
+        l = np.zeros(qb.shape[:4])
+        acc = np.zeros(qb.shape[:4] + (v.shape[3],))
+        kept = visited_tiles(torch.from_numpy(qp), torch.from_numpy(kv_pos), bk=bk,
+                             causal=causal, kv_valid=torch.from_numpy(valid))
+        n_kept += len(kept)
+        for j in kept:
+            keys = slice(j * bk, min((j + 1) * bk, T))
+            s = np.einsum("bqkgd,btkd->bqkgt", qb, k[:, keys]) * scale
+            vis = valid[keys][None, :] & ((kv_pos[keys][None, :] <= qp[:, None]) if causal
+                                          else True)
+            s = np.where(vis[None, :, None, None, :], s, -1e30)
+            m_new = np.maximum(m, s.max(-1))
+            alpha = np.exp(m - m_new)
+            p = np.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + np.einsum("bqkgt,btkd->bqkgd", p, v[:, keys])
+            m = m_new
+        out[:, rows.start:rows.stop] = acc / np.maximum(l, 1e-30)[..., None]
+    return out, n_kept
+
+
+@pytest.mark.parametrize("path", ["tensor", "simt"])
+@pytest.mark.parametrize("case", ["prefill", "ring", "decode_ring", "before_every_key",
+                                  "holes", "not_causal_holes"])
+def test_online_softmax_over_kept_tiles_is_the_full_softmax(path, case):
+    B, KV, G, Dh = 1, 2, 2, 32
+    bk = TILE_KEYS[path]
+    Sq = T = 150
+    q_pos = np.arange(Sq, dtype=np.int32)
+    kv_pos, kv_valid, causal = np.arange(T, dtype=np.int32), None, True
+    rng = np.random.default_rng([Sq, bk, len(case)])
+    if case in ("ring", "decode_ring"):   # a wrapped ring with two empty slots
+        Sq = 40 if case == "ring" else 1
+        q_pos = np.arange(400 - Sq, 400, dtype=np.int32)
+        kv_pos = _ring(T, 399, seed=97)
+        kv_valid = kv_pos <= 399
+    elif case == "before_every_key":      # the first rows see no key at all
+        Sq = 5
+        q_pos = np.array([-3, -2, -1, 40, 149], np.int32)
+    elif case in ("holes", "not_causal_holes"):
+        kv_valid = rng.random(T) < 0.7
+        kv_valid[:70] = False             # the first tiles hold no valid key
+        causal = case == "holes"
+    q, k, v = (a.astype(np.float64) for a in _inputs(B, Sq, T, KV, G, Dh, seed=[T, Sq]))
+    got, n_kept = _online_over_kept(q, k, v, q_pos, kv_pos, causal=causal, kv_valid=kv_valid,
+                                    bk=bk)
+    tv = None if kv_valid is None else torch.from_numpy(kv_valid)
+    full = attention_ref(*(torch.from_numpy(a) for a in (q, k, v)), torch.from_numpy(q_pos),
+                         torch.from_numpy(kv_pos), causal=causal, kv_valid=tv)
+    np.testing.assert_allclose(got, full.numpy(), rtol=0, atol=1e-12)
+    n_all = len(query_tiles(Sq, G)) * -(-T // bk)
+    assert n_kept == tiles_visited(q_pos, kv_pos, B=1, KV=1, G=G, Dh=Dh, Dv=Dh, path=path,
+                                   causal=causal, kv_valid=tv)
+    if case in ("prefill", "holes"):
+        assert n_kept < n_all             # the rule does skip here
+    # and JAX's sdpa_chunked (which computes in f32) agrees with both
+    want = sdpa_chunked(*(jnp.asarray(a.astype(np.float32)) for a in (q, k, v)),
+                        jnp.asarray(q_pos), jnp.asarray(kv_pos), causal=causal,
+                        kv_valid=None if kv_valid is None else jnp.asarray(kv_valid))
+    _close(torch.from_numpy(got.astype(np.float32)), want, v, "f32")
+
+
+@pytest.mark.parametrize("Dh,Dv", [(576, 64), (576, 512), (1024, 64), (1024, 512)])
+@pytest.mark.parametrize("decode", [False, True])
+def test_plain_version_matches_sdpa_chunked_past_the_old_head_dim_cap(Dh, Dv, decode):
+    # Dh = 576 is MLA's absorbed q·k width (512 + 64); the kernels took at
+    # most 559 before.  f32.  The scores' rounding grows with Dh, so these
+    # cases are held to a float64 anchor (the plain version in float64 on
+    # the same inputs): the port within twice JAX's distance from it, plus
+    # F32_ULPS units of 2⁻²³·max|v|.
+    B, KV, G, T = 1, 2, 2, 40
+    Sq = 1 if decode else 37
+    q, k, v = _inputs(B, Sq, T, KV, G, Dh, seed=[Dh, Dv, Sq], Dv=Dv)
+    q_pos = np.arange(T - Sq, T, dtype=np.int32)
+    kv_pos = np.arange(T, dtype=np.int32)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, "f32") for a in (q, k, v))
+    want = sdpa_chunked(jq, jk, jv, jnp.asarray(q_pos), jnp.asarray(kv_pos), causal=True)
+    got = flash_attention_cuda(tq, tk, tv, torch.from_numpy(q_pos), torch.from_numpy(kv_pos))
+    assert got.shape == (B, Sq, KV, G, Dv)
+    exact = attention_ref(*(torch.from_numpy(a).double() for a in (q, k, v)),
+                          torch.from_numpy(q_pos), torch.from_numpy(kv_pos)).numpy()
+    port = np.abs(got.numpy() - exact).max()
+    jax_err = np.abs(np.asarray(want, np.float64) - exact).max()
+    assert np.isfinite(got.numpy()).all()
+    assert port <= 2 * jax_err + F32_ULPS * 2.0 ** -23 * np.abs(v).max(), (port, jax_err)
+
+
+def test_kernel_path_is_chosen_by_shape():
+    # the tensor-core kernel: bf16, Dh = Dv in {64, 128}, Sq·G >= 64, and q, k,
+    # v on 16-byte boundaries; the SIMT kernel everything else
+    from repro_torch.kernels.flash_attention.ops import kernel_path
+
+    def path(Sq, G, Dh, Dv=None, dtype=torch.bfloat16, offset=0):
+        q, k, v = (torch.from_numpy(a).to(dtype)
+                   for a in _inputs(1, Sq, 8, 1, G, Dh, seed=0, Dv=Dv))
+        if offset:
+            q = torch.cat([q.flatten(), q.flatten()[:offset]])[offset:].view(q.shape)
+        return kernel_path(q, k, v)
+
+    assert path(64, 1, 128) == path(32, 2, 64) == path(8, 8, 128) == "tensor"
+    assert path(31, 2, 64) == "simt"                           # Sq·G < 64
+    assert path(64, 1, 128, dtype=torch.float32) == "simt"
+    assert path(64, 1, 96) == path(64, 1, 128, Dv=64) == "simt"
+    assert path(64, 1, 128, offset=1) == "simt"                # 2 bytes off a boundary
