@@ -88,7 +88,9 @@ Phases, each printing its own lines:
    bf16, G in {1, 2, 8}, Dh in {64, 128}, prefill Sq = Sk in {17, 512,
    2048} causal and not, decode Sq = 1 over T in {1, 2080, 4096}, a wrapped
    ring buffer with kv_valid (bf16 with Sq·G >= 64 on the tensor-core
-   kernel, the rest on the SIMT one); the tensor-core kernel at S in
+   kernel, every decode on the split-KV decode kernel, at its rule's split
+   count and at 1 and 5 splits, each launch twice and bit for bit, the
+   rest on the SIMT one); the tensor-core kernel at S in
    {300, 2048}, G in {1, 2, 8}, Dh in {64, 128}, causal and not, and with
    queries before every key (the mean of v); then (Dh, Dv) in {(192, 128),
    (48, 32), (96, 96), (40, 24), (559, 64)}, G in {1, 2}, prefill S = 300
@@ -107,13 +109,16 @@ Phases, each printing its own lines:
    them there beside the plain version, torch's
    scaled_dot_product_attention (a yardstick only; CUDA events) and the
    bound (the bytes, or q·kᵀ and p·v as 1 + 3 bf16 tensor-core products,
-   whichever is larger; the bound of the f32 p·v design beside it);
+   whichever is larger; the bound of the f32 p·v design beside it); the
+   decode in CUDA graphs (the card's time alone), in turns over 4 sets of
+   K and V (136 MB, past L2) and on one set, and by split count;
 17. Qwen3-1.7B at full width (configs/qwen3_1p7b.py: 28 layers, d_model
    2048, vocab 151,936), bf16, RANDOM weights from --seed (the repository
    holds none): prefill of 4 prompts of 2048 tokens into a cache of 2080,
    then 32 greedy decode steps, the flash kernel launched 28 x 33 times,
    the 28 prefill launches on the tensor-core kernel and the 28 x 32
-   decode launches on the SIMT one (the counts by path);
+   decode launches on the decode kernel, none on the SIMT one (the counts
+   by path);
    the prefill and 4 steps again with the attention on the plain version
    and in f32 on the same weights, the kernel's logits within 2x the plain
    version's distance from the f32 logits plus 1e-3 max|logit|; then the
@@ -193,6 +198,36 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def graph_ms(fns, per: int = 20, reps: int = 5) -> float:
+    """Mean milliseconds a call of the card's work of ``fns`` (one callable
+    per input set, taken in turns): ``per`` rounds of them captured in one
+    CUDA graph and replayed ``reps`` times, timed by CUDA events, so the
+    card runs them back to back and no host time enters."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):          # warm-up (workspaces, the libraries' state)
+        for fn in fns:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(per):
+            for fn in fns:
+                fn()
+    graph.replay()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / (reps * per * len(fns))
+    del graph
+    return ms
 
 
 def profile_steps(scheme, theta, masks, step_ms: float, n: int = 3) -> None:
@@ -312,12 +347,14 @@ def flash_phase(dev: torch.device, seed: int) -> dict:
     shapes.  Returns the numbers of the kernels line."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention_cuda
-    from repro_torch.kernels.flash_attention.ops import kernel_path, tile_count
+    from repro_torch.kernels.flash_attention.ops import (forced_splits, kernel_path, sm_count,
+                                                         split_count, tile_count)
     from repro_torch.kernels.flash_attention.ref import bf16_ulp, tiles_visited
     gen = torch.Generator(device=dev).manual_seed(seed + 16)
     f32_ulps = 4
-    paths = {"tensor": 0, "simt": 0}
+    paths = {"tensor": 0, "decode": 0, "simt": 0}
     n_tiles = 0
+    splits_seen: set[int] = set()
 
     def inputs(B, Sq, T, KV, G, Dh, dtype, Dv=None):
         q = torch.randn((B, Sq, KV, G, Dh), generator=gen, device=dev).to(dtype)
@@ -326,24 +363,37 @@ def flash_phase(dev: torch.device, seed: int) -> dict:
                         device=dev).to(dtype)
         return q, k, v
 
-    def kernel(q, k, v, q_pos, kv_pos, what, causal=True, kv_valid=None):
-        """One launch, its path counted and its key tiles held to the rule."""
+    def by_path() -> tuple[int, ...]:
+        return tuple(getattr(flash_attention_cuda, f"launches_{p}") for p in paths)
+
+    def kernel(q, k, v, q_pos, kv_pos, what, causal=True, kv_valid=None, splits=None):
+        """One launch, its path counted and its key tiles held to the rule; on
+        the decode kernel a second launch, bit for bit the first."""
         nonlocal n_tiles
-        path = kernel_path(q, k, v)
-        before = (flash_attention_cuda.launches_tensor, flash_attention_cuda.launches_simt)
-        with tile_count(dev) as tiles:
+        path = kernel_path(q, k, v, kv_pos, kv_valid)
+        B, _, KV, G, Dh = q.shape
+        n_split = splits or split_count(k.shape[1], B, KV, sm_count(dev))
+        forced = forced_splits(splits) if splits else contextlib.nullcontext()
+        before = by_path()
+        with forced, tile_count(dev) as tiles:
             got = flash_attention_cuda(q, k, v, q_pos, kv_pos, causal=causal, kv_valid=kv_valid)
         torch.cuda.synchronize()
-        after = (flash_attention_cuda.launches_tensor, flash_attention_cuda.launches_simt)
-        check((after[0] - before[0], after[1] - before[1]) == ((1, 0) if path == "tensor"
-                                                               else (0, 1)),
+        check(tuple(a - b for a, b in zip(by_path(), before)) ==
+              tuple(int(p == path) for p in paths),
               f"{what}: the launch went elsewhere than the {path} kernel")
-        B, _, KV, G, Dh = q.shape
         want = tiles_visited(q_pos, kv_pos, B=B, KV=KV, G=G, Dh=Dh, Dv=v.shape[3], path=path,
-                             causal=causal, kv_valid=kv_valid)
+                             causal=causal, kv_valid=kv_valid, splits=n_split)
         check(int(tiles) == want, f"{what}: {int(tiles)} key tiles visited, the rule keeps {want}")
         paths[path] += 1
         n_tiles += want
+        if path == "decode":
+            with forced_splits(n_split):
+                again = flash_attention_cuda(q, k, v, q_pos, kv_pos, causal=causal,
+                                             kv_valid=kv_valid)
+            check(same_bits(got.view(torch.int16) if got.dtype == torch.bfloat16 else got,
+                            again.view(torch.int16) if got.dtype == torch.bfloat16 else again),
+                  f"{what}: two runs of the decode kernel differ")
+            splits_seen.add(n_split)
         return got
 
     def within(got, want, v) -> torch.Tensor:
@@ -386,6 +436,7 @@ def flash_phase(dev: torch.device, seed: int) -> dict:
     t0 = time.perf_counter()
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
     n = 0
+    dec_err = 0.0
     imax = torch.iinfo(torch.int32).max
     for dtype in errs:
         for G in (1, 2, 8):
@@ -409,19 +460,27 @@ def flash_phase(dev: torch.device, seed: int) -> dict:
                         ring = torch.roll(kv_pos + 7, 611).to(torch.int32)
                         ring[[3, T // 2]] = imax
                         cases.append((ring, ring <= T + 6))
+                    check(kernel_path(q, k, v) == "decode", f"decode G={G} Dh={Dh}: not the "
+                          f"decode kernel")
                     for kvp, valid in cases:
                         qp = q_pos + (7 if kvp is not kv_pos else 0)
-                        what = f"decode {dtype} G={G} Dh={Dh} T={T}"
-                        got = kernel(q, k, v, qp, kvp, what, kv_valid=valid)
-                        want = attention_ref(q, k, v, qp, kvp, kv_valid=valid)
-                        torch.cuda.synchronize()
-                        errs[dtype] = max(errs[dtype], held(got, want, v, what))
-                        n += 1
+                        # the rule's split count, and 1 and 5 splits forced
+                        for splits in (None, 1, 5):
+                            what = f"decode {dtype} G={G} Dh={Dh} T={T} splits={splits}"
+                            got = kernel(q, k, v, qp, kvp, what, kv_valid=valid, splits=splits)
+                            want = attention_ref(q, k, v, qp, kvp, kv_valid=valid)
+                            torch.cuda.synchronize()
+                            err = held(got, want, v, what)
+                            errs[dtype] = max(errs[dtype], err)
+                            dec_err = max(dec_err, err)
+                            n += 1
     print(f"[flash] {n} cases (f32 and bf16; G in (1, 2, 8); Dh in (64, 128); prefill "
-          f"S in (17, 512, 2048) causal and not; decode T in (1, 2080, 4096); wrapped "
-          f"rings with kv_valid): max |kernel - plain| f32 {errs[torch.float32]:.3e}, bf16 "
-          f"{errs[torch.bfloat16]:.3e}, within 4 units of 2^-23 max|v| (f32) and one bf16 "
-          f"ulp beyond it (bf16); launches by path {paths} "
+          f"S in (17, 512, 2048) causal and not; decode T in (1, 2080, 4096) on the decode "
+          f"kernel at the rule's split count and at 1 and 5, each launch twice, bit for bit; "
+          f"wrapped rings with kv_valid): max |kernel - plain| f32 {errs[torch.float32]:.3e}, "
+          f"bf16 {errs[torch.bfloat16]:.3e} (decode {dec_err:.3e}), within 4 units of 2^-23 "
+          f"max|v| (f32) and one bf16 ulp beyond it (bf16); launches by path {paths}; splits "
+          f"by the rule on {sm_count(dev)} SMs: {sorted(splits_seen)} "
           f"({time.perf_counter() - t0:.1f} s)")
 
     # The tensor-core kernel past one tile and at the model's length: bf16,
@@ -533,11 +592,14 @@ def flash_phase(dev: torch.device, seed: int) -> dict:
           f"each launch's count equal to the skip rule's plain version (ref.tiles_visited)")
 
     # Timing at Qwen3-1.7B's shapes: the bf16 prefill (the tensor path) and
-    # decode, and the f32 prefill (the SIMT path), each first held against
-    # the plain version as the grid above is.
+    # decode (the decode path), and the f32 prefill (the SIMT path), each
+    # first held against the plain version as the grid above is.  The decode
+    # reads 34 MB of K and V, which L2 (50 MB) would hold: it is timed in
+    # turns over 4 sets of inputs (136 MB; each layer of the model has its
+    # own cache), and on one set beside it.
     B, KV, G, Dh = 4, 8, 2, 128
     H = KV * G
-    out = {"max_abs_err": max(errs.values())}
+    out = {"max_abs_err": max(errs.values()), "decode_max_abs_err": dec_err}
     for shape, Sq, T, dtype in (("prefill", 2048, 2048, torch.bfloat16),
                                 ("decode", 1, 2080, torch.bfloat16),
                                 ("simt_prefill", 2048, 2048, torch.float32)):
@@ -571,9 +633,49 @@ def flash_phase(dev: torch.device, seed: int) -> dict:
         check(lib_err <= 0.1 * float(mine.float().abs().max()),
               f"{shape}: the library call computes another function ({lib_err:.3e} away)")
         del want, ref_lib
-        ms = cuda_ms(kern, 20 if Sq > 1 else 50)
-        plain_ms = cuda_ms(plain, 3 if Sq > 1 else 20)
-        lib_ms = cuda_ms(library, 20 if Sq > 1 else 50)
+        warm = {}
+        if path == "decode":
+            sets = [(q, k, v)] + [inputs(B, Sq, T, KV, G, Dh, dtype) for _ in range(3)]
+            lsets = [(x.reshape(B, Sq, H, Dh).transpose(1, 2).contiguous(),
+                      y.transpose(1, 2).contiguous(), z.transpose(1, 2).contiguous())
+                     for x, y, z in sets]
+            kfns = [lambda x=x: flash_attention_cuda(*x, q_pos, kv_pos, kv_valid=valid)
+                    for x in sets]
+            lfns = [lambda x=x: F.scaled_dot_product_attention(*x, is_causal=False,
+                                                               enable_gqa=True)
+                    for x in lsets]
+            pfns = [lambda x=x: attention_ref(*x, q_pos, kv_pos, kv_valid=valid) for x in sets]
+
+            def in_turns(fns, reps):         # eager, CUDA events (the plain version is not
+                return cuda_ms(lambda: [fn() for fn in fns], reps) / len(fns)   # capturable)
+
+            # the kernel, SDPA, SDPA, the kernel (in graphs); the plain version eagerly
+            ms, lib_ms = graph_ms(kfns), graph_ms(lfns)
+            lib_ms, ms = (lib_ms + graph_ms(lfns)) / 2, (ms + graph_ms(kfns)) / 2
+            plain_ms = in_turns(pfns, 10)
+            warm = {"warm_ms": graph_ms(kfns[:1], per=80), "library_warm_ms":
+                    graph_ms(lfns[:1], per=80), "plain_warm_ms": cuda_ms(pfns[0], 20),
+                    "eager_ms": in_turns(kfns, 50), "library_eager_ms": in_turns(lfns, 50)}
+            sweep = {}
+            for n in (1, 2, 4, 6, 9, 12, 18):
+                with forced_splits(n):
+                    sweep[n] = graph_ms(kfns)
+            rule = split_count(T, B, KV, sm_count(dev))
+            print(f"[flash] decode at Qwen3-1.7B's shape in CUDA graphs, in turns over 4 sets "
+                  f"of K and V (136 MB, past L2) / on one set (L2-warm): the kernel "
+                  f"{ms:.4f} / {warm['warm_ms']:.4f} ms ({rule} splits, the rule's on "
+                  f"{sm_count(dev)} SMs), scaled_dot_product_attention {lib_ms:.4f} / "
+                  f"{warm['library_warm_ms']:.4f} ms; the plain version (eager) "
+                  f"{plain_ms:.4f} / {warm['plain_warm_ms']:.4f} ms; eager calls, host time "
+                  f"included: the kernel {warm['eager_ms']:.4f}, SDPA "
+                  f"{warm['library_eager_ms']:.4f} ms")
+            print("[flash] decode by split count (4 sets, graphs): " +
+                  ", ".join(f"{n}: {t:.4f} ms" for n, t in sweep.items()))
+            del sets, lsets, kfns, lfns, pfns
+        else:
+            ms = cuda_ms(kern, 20)
+            plain_ms = cuda_ms(plain, 3)
+            lib_ms = cuda_ms(library, 20)
         pairs = int((kv_pos[None, :] <= q_pos[:, None]).sum())     # visible, per head
         flops = 2 * B * H * Dh * pairs                 # one product, 2 FLOP an FMA
         nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, mine, q_pos, kv_pos))
@@ -604,7 +706,7 @@ def flash_phase(dev: torch.device, seed: int) -> dict:
               f"{old_ms:.4f} ms")
         out[shape] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                       "bound_ms": bound_ms, "bound_by": bound_by, "old_bound_ms": old_ms,
-                      "path": path}
+                      "path": path, **warm}
     return out
 
 
@@ -654,25 +756,27 @@ def model_phase(dev: torch.device, seed: int, reset_counts, read_counts) -> dict
     torch.cuda.synchronize()
     decode_ms = (time.perf_counter() - t0) * 1e3 / steps
     counts = read_counts("full-width serving", flash_call=cfg.n_layers * (1 + steps))
-    by_path = (flash_attention_cuda.launches_tensor, flash_attention_cuda.launches_simt)
-    check(by_path == (cfg.n_layers, cfg.n_layers * steps),
-          f"flash launches by path (tensor, simt) {by_path}: want the prefill's "
-          f"{cfg.n_layers} on the tensor kernel and the decode's {cfg.n_layers * steps} on "
-          f"the SIMT one")
+    by_path = (flash_attention_cuda.launches_tensor, flash_attention_cuda.launches_decode,
+               flash_attention_cuda.launches_simt)
+    check(by_path == (cfg.n_layers, cfg.n_layers * steps, 0),
+          f"flash launches by path (tensor, decode, simt) {by_path}: want the prefill's "
+          f"{cfg.n_layers} on the tensor kernel, the decode's {cfg.n_layers * steps} on the "
+          f"decode kernel and none on the SIMT one")
     peak = torch.cuda.max_memory_allocated() - held_before
     check(all(bool(torch.isfinite(x).all()) for x in kernel_logits), "non-finite logits")
     print(f"[model] prefill {B} x {S} tokens: {prefill_ms:.1f} ms ({B * S / prefill_ms * 1e3:.0f} "
           f"tokens/s); {steps} greedy decode steps: {decode_ms:.3f} ms a step "
           f"({B / decode_ms * 1e3:.1f} tokens/s); flash kernel launches {counts['flash_call']} "
           f"= {cfg.n_layers} x (1 + {steps}), by path: {by_path[0]} on the tensor kernel "
-          f"(the prefill), {by_path[1]} on the SIMT kernel (the decode); peak device memory of "
+          f"(the prefill), {by_path[1]} on the decode kernel, {by_path[2]} on the SIMT one; "
+          f"peak device memory of "
           f"the model, its cache and the run {peak / 2**30:.2f} GiB (host clock after a "
           f"synchronize)")
 
     # The kernel's share of a decode step and the device's busy share, over
     # two steps that rewrite the last two positions; then one prefill.
     def is_flash(name: str) -> bool:
-        return "flash_tc_kernel" in name or "flash_simt_kernel" in name
+        return any(f"flash_{k}_kernel" in name for k in ("tc", "decode", "simt"))
 
     wall, busy, rows, n_kernels = device_busy(
         lambda: [model.decode_step(fed[i], S + i, cache) for i in (steps - 2, steps - 1)])
@@ -753,7 +857,8 @@ def model_phase(dev: torch.device, seed: int, reset_counts, read_counts) -> dict
           f"in {wb.ticks} ticks, {wave_ms:.1f} ms ({8 * 16 / wave_ms * 1e3:.1f} generated "
           f"tokens/s, {wave_ms / wb.ticks:.3f} ms a tick)")
     return {"launches": counts["flash_call"], "launches_tensor": by_path[0],
-            "launches_simt": by_path[1], "prefill_ms": prefill_ms, "decode_ms": decode_ms}
+            "launches_decode": by_path[1], "launches_simt": by_path[2],
+            "prefill_ms": prefill_ms, "decode_ms": decode_ms}
 
 
 # The rules of phase 8's gradient anchor (serving_anchors): the float64
@@ -1197,6 +1302,7 @@ def main() -> int:
         for w in wrappers.values():
             w.launches = 0
         flash_attention_cuda.launches_tensor = flash_attention_cuda.launches_simt = 0
+        flash_attention_cuda.launches_decode = 0
 
     def read_counts(what: str, **want: int) -> dict[str, int]:
         """The launch counts after a path's run: each kernel named in
@@ -2457,17 +2563,23 @@ def main() -> int:
         "launches": launches14, "max_abs_err": max(err12, err14), "ms": replay_ms,
         "plain_ms": replay_plain_ms, "bound_ms": replay_bound_ms, "bound_by": "bytes",
         "library_ms": None})
+    flash_src = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
     kernels.append({
-        "name": "flash_attention.flash_call", "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "name": "flash_attention.flash_call", "route": "cuda", "source": flash_src,
         "replaces": "src/repro/kernels/flash_attention/kernel.py:70",
-        "also_replaces": "src/repro/models/attention.py:29", "launches": served["launches"],
+        "also_replaces": "src/repro/models/attention.py:29",
+        "launches": served["launches_tensor"] + served["launches_simt"],
         "launches_tensor": served["launches_tensor"], "launches_simt": served["launches_simt"],
         "max_abs_err": flash["max_abs_err"],
         **{k: v for k, v in flash["prefill"].items() if k != "path"},
         "prefill_path": flash["prefill"]["path"],
-        **{f"decode_{k}": v for k, v in flash["decode"].items()},
         **{f"simt_prefill_{k}": v for k, v in flash["simt_prefill"].items()}})
+    kernels.append({
+        "name": "flash_attention.flash_decode", "route": "cuda", "source": flash_src,
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:70",
+        "also_replaces": "src/repro/models/attention.py:29",
+        "launches": served["launches_decode"], "max_abs_err": flash["decode_max_abs_err"],
+        **{k: v for k, v in flash["decode"].items() if k != "path"}})
     kernels.append({
         "name": "block_matmul.matmul_kernel_call", "route": "cuda",
         "source": "src/repro_torch/kernels/block_matmul/csrc/block_matmul.cu",

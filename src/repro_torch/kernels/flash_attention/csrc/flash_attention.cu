@@ -23,10 +23,11 @@
 // result is acc / max(l, 1e-30) (kernel.py:82), rounded once to the output
 // type (v's) with __float2bfloat16 (round to nearest) for bf16.
 //
-// Two kernels, one block per 64 (query, head) rows of one KV head and one
-// batch row: bq = 64 / G queries of all G heads, so each K/V tile is read
-// once per KV head.  The wrapper (ops.py) picks one by shape, never as a
-// fallback:
+// Three kernels.  The wrapper (ops.py, kernel_path) picks one by shape,
+// never as a fallback.  The first two give a block 64 (query, head) rows of
+// one KV head and one batch row: bq = 64 / G queries of all G heads, so each
+// K/V tile is read once per KV head.  The third, for decode, gives a block
+// every row of a KV head and a range of its keys:
 //
 // * flash_tc_kernel, the tensor-core prefill: bf16 with Dh = Dv in {64,
 //   128}, taken when Sq·G >= 64 (a block has a full 64 rows).  One
@@ -51,8 +52,39 @@
 //   control, the plain version with p rounded once (ref.attention_ref,
 //   p_terms=1), that the same bf16 comparison must reject.  Query
 //   tiles run longest first (the causal triangle's long rows start early).
-// * flash_simt_kernel, every other case (f32, other head dimensions,
-//   decode): 256 threads; K and V tiles of 32 keys are converted to f32 in
+// * flash_decode_kernel, split-KV decoding: f32 or bf16 with Dh = Dv in
+//   {64, 128}, taken when Sq·G <= 16 (a decode step of up to 16 query heads
+//   a KV head, or a few queries of fewer).  The grid is (splits, KV, B):
+//   the keys' 32-key tiles are cut into `splits` contiguous ranges, one a
+//   block, the number chosen by the wrapper from T and the card's SM count
+//   (ops.split_count: at least two blocks an SM).  A block has up to four
+//   warps, one a row up to four rows (a warp holds up to four rows) times
+//   tile slots; warps take keys.  The split's tiles are copied in order by
+//   TMA, n_slot a stage, into a ring of two stages, each behind an mbarrier
+//   and issued by one thread: K and V (4-D maps, 128 bytes of a row x 32
+//   keys a box, 128-byte swizzled, zero past T), the keys' positions and
+//   flags (1-D maps), and with the first stage q (bulk copies); the next
+//   stage is in flight while one is read.  For a row a warp forms 32
+//   scores, one a lane, each one FMA chain over d in ascending order (f32,
+//   q read from shared memory by all lanes at once), then the scale; the
+//   tile's maximum and sum by shuffles; p in f32 in its lane; then acc[c]
+//   += p·v with lane = columns, the 32 keys in order, p shuffled from its
+//   lane.  The slots' (m, l, acc) fold in ascending order; with several
+//   splits each block writes its (m, l, acc) in f32 to a workspace and the
+//   last block of each (b, KV head) to finish (a counter that it resets to
+//   0) folds them in ascending split order, as the slots: (m, l, acc) and a
+//   part (m', l', acc') give M = max(m, m'), l·e^(m - M) + l'·e^(m' - M) and
+//   the same for acc; out = acc / max(l, 1e-30), rounded once.  No float
+//   atomics: two runs give the same bits.  A split whose keys are all
+//   masked for a row has m' = -1e30, so e^(m' - M) = 0 where another split
+//   saw a key, and a row with no visible key anywhere sums p = 1 over all T
+//   keys: the mean of v.  The wrapper sends a kv_pos or kv_valid off a
+//   16-byte boundary (which TMA cannot copy) to the SIMT kernel.  On the
+//   host a launch reuses the tensor maps of an earlier launch on the same
+//   tensors (cached_map) and sets the kernel's shared-memory limit once a
+//   device.
+// * flash_simt_kernel, every other case (f32 prefill, other head
+//   dimensions, decode past 16 rows): 256 threads; K and V tiles of 32 keys are converted to f32 in
 //   shared memory, each thread forms a 4 x 2 block of scores with FMAs, the
 //   16 threads of a row group take the row's maximum and sum by warp
 //   shuffles, and the running m, l and the 4 x Dv/16 slice of acc stay in
@@ -66,17 +98,23 @@
 //   in ascending d across the chunks.  So no head dimension is bounded by
 //   shared memory.
 //
-// The causal skip, in both kernels: a block skips key tile j when no key
-// in it is visible to any of its rows and every row has already met a
-// visible key in an earlier tile.  After a row's first visible key, a
-// fully masked tile adds p = exp(-1e30 - m) = 0 with alpha = 1, so skipping
-// it changes no bit (for finite inputs; a NaN or inf in a skipped v row is
-// not read).  A row with no visible key at all keeps every tile, and comes
-// out as the mean of v.  Positions need not ascend (ring buffers wrap): the
-// block reads the keys' positions and flags, 32 tiles at a time
-// (window_bits), before it loads a tile.  On causal prefill with ascending
-// positions this keeps tiles 0 .. (q0 + bq + bk - 1) / bk - 1, flash_call's
-// own loop range.  ref.visited_tiles is the rule's plain version.
+// The causal skip, in all three kernels: a block skips key tile j when no
+// key in it is visible to any of its rows and every row has already met a
+// visible key in an earlier tile (for the decode kernel: an earlier tile of
+// its own split, so the rule runs on each split's keys alone).  After a
+// row's first visible key, a fully masked tile adds p = exp(-1e30 - m) = 0
+// with alpha = 1, so skipping it changes no bit (for finite inputs; a NaN
+// or inf in a skipped v row is not read).  A row with no visible key at all
+// keeps every tile, and comes out as the mean of v.  Positions need not
+// ascend (ring buffers wrap): the prefill kernels read the keys' positions
+// and flags, 32 tiles at a time (window_bits), before they load a tile.
+// The decode kernel decides a tile's visit from the positions and flags
+// copied with it, so it copies every tile of its split and reads only the
+// visited ones: at decode the rule drops only tiles of empty or masked
+// slots, and deciding before the copies cost a round trip to the positions
+// first.  On causal prefill with ascending positions the rule keeps tiles
+// 0 .. (q0 + bq + bk - 1) / bk - 1, flash_call's own loop range.
+// ref.visited_tiles is the rule's plain version.
 //
 // Bound on an H100 SXM (3.35 TB/s; 989 TFLOP/s on the bf16 tensor cores,
 // 67 TFLOP/s f32 outside them).  At Qwen3-1.7B's prefill (B = 4, 16 heads
@@ -91,14 +129,18 @@
 // is the largest share of a tile's cycles, as clock64 reads around the
 // loop's phases showed.
 // A decode step (Sq = 1, T = 2080) reads 34 MB of cache for 68 MFLOP: bound
-// by bytes, 0.01 ms.  At decode a block has Sq·G = 2 of its 64 rows, which
-// all fall to row group 0 of the SIMT kernel: 16 of the 256 threads
-// compute, over 32 blocks (B × KV) for 132 SMs.  Giving the idle row groups
-// key sub-ranges (and splitting the keys across SMs) is later work.
+// by bytes, 0.0102 ms.  On the SIMT kernel a block had Sq·G = 2 of its 64
+// rows, all in row group 0 (16 of 256 threads at work), over 32 blocks for
+// 132 SMs, one tile at a time: 0.57 ms.  The decode kernel puts 9 splits x
+// 32 blocks on the card, every lane on a key or on columns, a stage of
+// copies always in flight (the ring: 2 x 2 tiles, 66 KB at Dh = 128 bf16,
+// about 70 KB a block in all, three blocks an SM), and the combine costs
+// the last block of each (b, h) a read of 9 x 2 x 130 floats.
 #include <cuda.h>   // CUtensorMap and its enums; the encode is looked up at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <climits>
 #include <cstddef>
 #include <cstdint>
@@ -967,21 +1009,80 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The 4-D map of k or v (B, T, KV, D) bf16: boxes of 64 columns x 64 keys of
-// one KV head and batch row, 128-byte swizzled, zero past T.
-bool key_map(CUtensorMap* map, const void* x, int B, int Tk, int KV, int D) {
+// What a tensor map encodes: its base, extents, element kind (0 bf16, 1
+// f32, 2 int32, 3 bytes) and keys a box.  The map is a function of these
+// alone, so equal keys may share one map.
+struct MapKey {
+  const void* x;
+  int B, Tk, KV, D, kind, keys;
+  bool operator==(const MapKey& o) const {
+    return x == o.x && B == o.B && Tk == o.Tk && KV == o.KV && D == o.D && kind == o.kind &&
+           keys == o.keys;
+  }
+};
+
+struct MapSlot {
+  CUtensorMap map;
+  MapKey key;
+  bool used;
+};
+
+// The maps this thread encoded last, in sets of four by the hash of their
+// key (the oldest of a set gives way): a launch on the tensors of an earlier
+// one (a model's caches, layer by layer, step after step) reuses its maps
+// instead of encoding them anew.  Per thread, so without a lock (ctypes
+// calls run outside Python's lock).
+constexpr int kMapSets = 256, kMapWays = 4;
+thread_local MapSlot map_cache[kMapSets][kMapWays];
+thread_local unsigned char map_next[kMapSets];
+
+// *map for `key`, from the cache or else from `encode(&slot.map)`.
+template <typename Encode>
+bool cached_map(CUtensorMap* map, const MapKey& key, Encode encode) {
+  uint64_t h = reinterpret_cast<uintptr_t>(key.x) >> 4;
+  const int fields[6] = {key.B, key.Tk, key.KV, key.D, key.kind, key.keys};
+  for (const int f : fields) {
+    h = (h ^ static_cast<uint32_t>(f)) * 0x100000001b3ull;
+  }
+  h = (h ^ (h >> 33)) * 0xff51afd7ed558ccdull;   // (MurmurHash3's finish)
+  const int set = static_cast<int>((h ^ (h >> 33)) % kMapSets);
+  for (MapSlot& slot : map_cache[set]) {
+    if (slot.used && slot.key == key) {
+      *map = slot.map;
+      return true;
+    }
+  }
+  MapSlot& slot = map_cache[set][map_next[set]];
+  slot.used = false;
+  if (!encode(&slot.map)) return false;
+  slot.key = key;
+  slot.used = true;
+  map_next[set] = static_cast<unsigned char>((map_next[set] + 1) % kMapWays);
+  *map = slot.map;
+  return true;
+}
+
+// The 4-D map of k or v (B, T, KV, D), bf16 or f32: boxes of 128 bytes of
+// columns x `keys` keys of one KV head and batch row, 128-byte swizzled,
+// zero past T.
+bool key_map(CUtensorMap* map, const void* x, int B, int Tk, int KV, int D, int bf16, int keys) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(KV),
-                              static_cast<cuuint64_t>(Tk), static_cast<cuuint64_t>(B)};
-  const cuuint64_t row = static_cast<cuuint64_t>(D) * 2;
-  const cuuint64_t strides[3] = {row, row * KV, row * KV * Tk};
-  const cuuint32_t box[4] = {64, 1, kTcBK, 1};
-  const cuuint32_t step[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides,
-                box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return cached_map(map, MapKey{x, B, Tk, KV, D, bf16 ? 0 : 1, keys}, [&](CUtensorMap* m) {
+    const cuuint64_t esz = bf16 ? 2 : 4;
+    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(KV),
+                                static_cast<cuuint64_t>(Tk), static_cast<cuuint64_t>(B)};
+    const cuuint64_t row = static_cast<cuuint64_t>(D) * esz;
+    const cuuint64_t strides[3] = {row, row * KV, row * KV * Tk};
+    const cuuint32_t box[4] = {static_cast<cuuint32_t>(128 / esz), 1,
+                               static_cast<cuuint32_t>(keys), 1};
+    const cuuint32_t step[4] = {1, 1, 1, 1};
+    return encode(m, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                  4, const_cast<void*>(x), dims, strides, box, step,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  });
 }
 
 template <int D>
@@ -989,7 +1090,8 @@ int launch_tc(const void* q, const void* k, const void* v, const int* q_pos, con
               const unsigned char* kv_valid, void* out, int B, int Sq, int Tk, int KV, int G,
               int causal, float scale, unsigned long long* tiles_visited, cudaStream_t stream) {
   CUtensorMap map_k, map_v;
-  if (!key_map(&map_k, k, B, Tk, KV, D) || !key_map(&map_v, v, B, Tk, KV, D)) {
+  if (!key_map(&map_k, k, B, Tk, KV, D, 1, kTcBK) ||
+      !key_map(&map_v, v, B, Tk, KV, D, 1, kTcBK)) {
     return static_cast<int>(cudaErrorNotSupported);
   }
   const size_t smem = tc_smem_bytes(D);
@@ -1006,6 +1108,575 @@ int launch_tc(const void* q, const void* k, const void* v, const int* q_pos, con
 }
 
 static_assert(tc_smem_bytes(128) <= kMaxSmem, "the tensor-core block fits");
+
+// ------------------------------------------------------------- decode kernel
+
+constexpr int kDecBK = 32;                // keys per tile: one a lane
+constexpr int kDecMaxRows = 16;           // (query, head) rows the decode kernel takes
+constexpr int kDecWarps = 4;              // warps a block has at most
+constexpr int kDecStageBytes = 36864;     // K and V bytes a stage holds at most (2 stages)
+
+// One key tile in shared memory as TMA's 128-byte swizzle leaves it: K then
+// V, each in atoms of 128 bytes of every key's row (64 bf16 or 32 f32
+// columns) x 32 keys, 16-byte group g of key r's row at g ^ (r % 8).  A lane
+// reading its own key's row and the lanes of a warp reading one row
+// together both hit 32 distinct banks.
+template <typename T, int D>
+struct DecTile {
+  static constexpr int kRowBytes = D * static_cast<int>(sizeof(T));
+  static constexpr int kAtoms = kRowBytes / 128;
+  static constexpr int kHalf = kDecBK * kRowBytes;     // K (or V) of a tile
+  static constexpr int kBytes = 2 * kHalf;
+  static constexpr int kCols = D / 32;                 // v columns a lane
+  static_assert(kRowBytes % 128 == 0 && kHalf % 1024 == 0, "whole swizzle atoms");
+};
+
+// The byte at `off` of key r's row in a tile half at `base`.
+__device__ __forceinline__ const unsigned char* swizzled(const unsigned char* base, int r,
+                                                         int off) {
+  return base + (off >> 7) * (kDecBK * 128) + r * 128 + ((off & 127) ^ ((r & 7) << 4));
+}
+
+// bf16 bits to f32, exactly: element 0 is the low half of a word.
+__device__ __forceinline__ void bf16_pair(uint32_t w, float& lo, float& hi) {
+  lo = __uint_as_float(w << 16);
+  hi = __uint_as_float(w & 0xffff0000u);
+}
+
+// Elements 8c .. 8c + 7 of key r's row, as f32.
+__device__ __forceinline__ void load8(const unsigned char* base, int r, int c,
+                                      const __nv_bfloat16*, float (&x)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(swizzled(base, r, 16 * c));
+  bf16_pair(u.x, x[0], x[1]);
+  bf16_pair(u.y, x[2], x[3]);
+  bf16_pair(u.z, x[4], x[5]);
+  bf16_pair(u.w, x[6], x[7]);
+}
+__device__ __forceinline__ void load8(const unsigned char* base, int r, int c, const float*,
+                                      float (&x)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(swizzled(base, r, 32 * c));
+  const float4 b = *reinterpret_cast<const float4*>(swizzled(base, r, 32 * c + 16));
+  x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
+  x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
+}
+
+// N (2 or 4) elements of key r's row from element e on, as f32.
+template <int N>
+__device__ __forceinline__ void load_cols(const unsigned char* base, int r, int e,
+                                          const __nv_bfloat16*, float (&x)[N]) {
+  const unsigned char* p = swizzled(base, r, 2 * e);
+  if constexpr (N == 4) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    bf16_pair(u.x, x[0], x[1]);
+    bf16_pair(u.y, x[2], x[3]);
+  } else {
+    bf16_pair(*reinterpret_cast<const uint32_t*>(p), x[0], x[1]);
+  }
+}
+template <int N>
+__device__ __forceinline__ void load_cols(const unsigned char* base, int r, int e, const float*,
+                                          float (&x)[N]) {
+  const unsigned char* p = swizzled(base, r, 4 * e);
+  if constexpr (N == 4) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
+  } else {
+    const float2 a = *reinterpret_cast<const float2*>(p);
+    x[0] = a.x, x[1] = a.y;
+  }
+}
+
+// Over the 32 lanes, by an xor butterfly: every lane ends with the same bits
+// (each step adds two equal pairs in either order).
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// 1-D copies: `bytes` (a multiple of 16) from global to shared memory, and
+// a box of 32 elements of a 1-D tensor map (zero past its end), each
+// reported to `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
+      : "memory");
+}
+
+// Eight consecutive elements of a row of q in shared memory (row-major, as
+// in global memory), as f32.
+__device__ __forceinline__ void load8_row(const __nv_bfloat16* p, float (&x)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  bf16_pair(u.x, x[0], x[1]);
+  bf16_pair(u.y, x[2], x[3]);
+  bf16_pair(u.z, x[4], x[5]);
+  bf16_pair(u.w, x[6], x[7]);
+}
+__device__ __forceinline__ void load8_row(const float* p, float (&x)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
+  x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
+}
+
+// One step of the online combine, in f32: the running (m, l, acc) and a
+// part (mp, lp, ap) become (max, l·e^(m - max) + lp·e^(mp - max), the same
+// for acc).  A part whose keys were all masked (mp = -1e30) beside a seen
+// key weighs e^(-1e30 - m) = 0.
+struct Fold {
+  float m = kNegInf, l = 0.0f;
+  __device__ void add(float mp, float lp, float& acc, float ap) {
+    const float mx = fmaxf(m, mp);
+    const float a = expf(m - mx), b = expf(mp - mx);
+    l = fmaf(lp, b, l * a);
+    acc = fmaf(ap, b, acc * a);
+    m = mx;
+  }
+};
+
+// A stage's key positions and flags, per slot (the flags' 32 bytes padded
+// to 128, where TMA writes).
+struct DecMeta {
+  int pos[kDecBK];
+  unsigned char valid[128];
+};
+
+// Split-KV decoding: block (split, KV head h, batch row b) takes the key
+// tiles [n_tiles·split / n_split, n_tiles·(split + 1) / n_split) and every
+// one of the rows = Sq·G (<= 16) (query, head) rows of head h, row r being
+// query r / G, head r % G.  Its warps are n_rw row warps times n_slot tile
+// slots: warp (slot, w) takes rows w, w + n_rw, ... (NR of them, the last
+// repeated where rows run out) on the key tile of its slot.  The split's
+// tiles are copied in order, n_slot a stage, into a ring of two stages by
+// TMA, one thread issuing each stage's copies behind its mbarrier: K and V
+// (128-byte swizzled), the keys' positions and flags, and with the first
+// stage q.  Each tile's visit is decided from the stage's own positions, in
+// order (the skip rule of window_bits on the split's keys alone): a tile
+// is visited when a key in it is visible to the highest query position, or
+// when no earlier tile of the split held a key visible to the lowest; a
+// tile that is not visited was copied but is not read.  For each of its
+// rows a warp forms 32 scores, one a lane (lane = key), each one FMA chain
+// over d in ascending order from K and q in shared memory (q read by all
+// lanes at once), then scaled; it takes the tile's maximum and sum by
+// shuffles (the online softmax, p in f32); then p·v with lane = columns:
+// acc[c] += p_key · v[key][c] over the 32 keys in order, p_key shuffled
+// from its lane.  The slots' (m, l, acc) fold in ascending order (Fold);
+// with one split the block writes the output, else it writes its (m, l,
+// acc) to the workspace, and the last block of (b, h) to finish (a counter
+// per (b, h), which it resets to 0) folds the splits in ascending order,
+// as many at a time as its shared memory holds, each batch loaded at once.
+template <typename T, int D, int NR>
+__global__ void __launch_bounds__(kDecWarps * 32)
+flash_decode_kernel(const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v,
+                    const __grid_constant__ CUtensorMap map_pos,
+                    const __grid_constant__ CUtensorMap map_valid, const T* __restrict__ q,
+                    const int* __restrict__ q_pos, int has_valid, T* __restrict__ out,
+                    float* __restrict__ work, unsigned* __restrict__ counters, int Sq, int Tk,
+                    int KV, int G, int n_rw, int n_slot, int causal, float scale,
+                    unsigned long long* tiles_visited) {
+  using Tile = DecTile<T, D>;
+  constexpr int kCols = Tile::kCols;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int rows = Sq * G;
+  const int ring_bytes = 2 * n_slot * Tile::kBytes;
+  // Tiles start on 1024 bytes of the shared window: the swizzle repeats there.
+  unsigned char* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  DecMeta* meta = reinterpret_cast<DecMeta*>(ring + ring_bytes);   // [stage][slot]
+  T* qs = reinterpret_cast<T*>(meta + 2 * n_slot);                 // rows x D, as in q
+  float* fold = reinterpret_cast<float*>(qs + rows * D);           // rows x D; rows x (m, l)
+  uint64_t* bar = reinterpret_cast<uint64_t*>(fold + rows * (D + 2));   // a stage's copies
+  int* last = reinterpret_cast<int*>(bar + 2);
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int n_split = static_cast<int>(gridDim.x), split = static_cast<int>(blockIdx.x);
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int bh = b * KV + h;
+  const int n_tiles = (Tk + kDecBK - 1) / kDecBK;
+  const int j_begin = static_cast<int>(static_cast<long long>(split) * n_tiles / n_split);
+  const int nt = static_cast<int>(static_cast<long long>(split + 1) * n_tiles / n_split) - j_begin;
+  const int t_begin = j_begin * kDecBK;
+  auto row_at = [&](int r) {              // where row r of (b, h) starts in q and out
+    return ((static_cast<size_t>(b) * Sq + r / G) * KV + h) * G * D +
+           static_cast<size_t>(r % G) * D;
+  };
+
+  // Stage st takes the split's tiles j0 .. j0 + n_slot - 1 (those that
+  // exist), by TMA from thread 0, with q if `with_q`.
+  auto fill = [&](int st, int j0, bool with_q) {
+    if (tid != 0) return;
+    const int n = min(n_slot, nt - j0);
+    const unsigned q_row = static_cast<unsigned>(G * D * sizeof(T));
+    mbar_expect_tx(&bar[st], n * (Tile::kBytes + kDecBK * 4 + (has_valid ? kDecBK : 0)) +
+                                 (with_q ? Sq * q_row : 0));
+    if (with_q) {
+      for (int i = 0; i < Sq; ++i) bulk_load(qs + i * G * D, q + row_at(i * G), q_row, &bar[st]);
+    }
+    for (int s = 0; s < n; ++s) {
+      unsigned char* kd = ring + (st * n_slot + s) * Tile::kBytes;
+      const int key0 = t_begin + (j0 + s) * kDecBK;
+#pragma unroll
+      for (int a = 0; a < Tile::kAtoms; ++a) {
+        const int col = a * 128 / static_cast<int>(sizeof(T));
+        tma_load(kd + a * kDecBK * 128, &map_k, &bar[st], col, h, key0, b);
+        tma_load(kd + Tile::kHalf + a * kDecBK * 128, &map_v, &bar[st], col, h, key0, b);
+      }
+      tma_load_1d(meta[st * n_slot + s].pos, &map_pos, &bar[st], key0);
+      if (has_valid) tma_load_1d(meta[st * n_slot + s].valid, &map_valid, &bar[st], key0);
+    }
+  };
+  if (tid < 4) {                          // the four maps, fetched side by side
+    const CUtensorMap* maps[4] = {&map_k, &map_v, &map_pos, &map_valid};
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(maps[tid]))
+                 : "memory");
+  }
+  if (tid == 0) {
+    mbar_init(&bar[0], 1);
+    mbar_init(&bar[1], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (nt > 0) fill(0, 0, true);
+    if (nt > n_slot) fill(1, n_slot, false);
+  }
+  __syncthreads();                        // the mbarriers are initialised
+  // The queries' positions: loaded now, first used after the first stage.
+  const int slot = warp / n_rw, wr = warp % n_rw;
+  int row[NR], qp[NR];
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+    row[i] = min(wr + i * n_rw, rows - 1);
+    qp[i] = q_pos[row[i] / G];
+  }
+  const int qp_lane = q_pos[min(lane, Sq - 1)];
+
+  float m[NR], l[NR], acc[NR][kCols];
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.0f;
+  }
+  int qmin = 0, qmax = 0;
+  bool met = false;                       // an earlier tile held a key visible to qmin
+  unsigned long long visited = 0;
+  for (int it = 0; it * n_slot < nt; ++it) {
+    const int st = it & 1;
+    mbar_wait(&bar[st], static_cast<unsigned>((it >> 1) & 1));
+    if (it == 0) {
+      qmin = __reduce_min_sync(0xffffffffu, qp_lane);
+      qmax = __reduce_max_sync(0xffffffffu, qp_lane);
+    }
+    // The stage's visits, in order, the same in every thread.
+    bool mine = false;
+#pragma unroll
+    for (int s = 0; s < kDecWarps; ++s) {
+      const int j = it * n_slot + s;
+      if (s < n_slot && j < nt) {
+        const DecMeta& mt = meta[st * n_slot + s];
+        const bool ok = t_begin + j * kDecBK + lane < Tk && (!has_valid || mt.valid[lane] != 0);
+        const int p = mt.pos[lane];
+        const bool seen = __ballot_sync(0xffffffffu, ok && (!causal || p <= qmax)) != 0;
+        const bool to_all = __ballot_sync(0xffffffffu, ok && (!causal || p <= qmin)) != 0;
+        const bool visit = seen || !met;
+        met = met || to_all;
+        visited += visit;
+        mine = s == slot ? visit : mine;
+      }
+    }
+    if (mine) {
+      const int j = it * n_slot + slot;
+      const unsigned char* kd = ring + (st * n_slot + slot) * Tile::kBytes;
+      const unsigned char* vd = kd + Tile::kHalf;
+      const DecMeta& mt = meta[st * n_slot + slot];
+      const bool in = t_begin + j * kDecBK + lane < Tk;
+      const bool ok = in && (!has_valid || mt.valid[lane] != 0);
+      const int kp = mt.pos[lane];
+
+      // scores: lane = key, one FMA chain a row in ascending d
+      float s[NR];
+#pragma unroll
+      for (int i = 0; i < NR; ++i) s[i] = 0.0f;
+#pragma unroll
+      for (int c8 = 0; c8 < D / 8; ++c8) {
+        float kf[8];
+        load8(kd, lane, c8, static_cast<const T*>(nullptr), kf);
+#pragma unroll
+        for (int i = 0; i < NR; ++i) {
+          float qf[8];
+          load8_row(qs + row[i] * D + 8 * c8, qf);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) s[i] = fmaf(qf[e], kf[e], s[i]);
+        }
+      }
+      // scale, mask and the online softmax; p stays in its lane, in f32
+      float p[NR];
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        const bool visible = ok && (!causal || kp <= qp[i]);
+        const float x = visible ? __fmul_rn(s[i], scale) : kNegInf;
+        const float m_new = fmaxf(m[i], warp_max(in ? x : kNegInf));
+        const float alpha = expf(m[i] - m_new);
+        p[i] = in ? expf(x - m_new) : 0.0f;
+        l[i] = l[i] * alpha + warp_sum(p[i]);
+        m[i] = m_new;
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) acc[i][c] *= alpha;
+      }
+      // acc += p·v: lane = columns, the keys in order (V is zero past T)
+#pragma unroll 8
+      for (int kk = 0; kk < kDecBK; ++kk) {
+        float vf[kCols];
+        load_cols<kCols>(vd, kk, lane * kCols, static_cast<const T*>(nullptr), vf);
+#pragma unroll
+        for (int i = 0; i < NR; ++i) {
+          const float pk = __shfl_sync(0xffffffffu, p[i], kk);
+#pragma unroll
+          for (int c = 0; c < kCols; ++c) acc[i][c] = fmaf(pk, vf[c], acc[i][c]);
+        }
+      }
+    }
+    __syncthreads();                      // stage st is read: refill it
+    if ((it + 2) * n_slot < nt) fill(st, (it + 2) * n_slot, false);
+  }
+  if (tiles_visited != nullptr && tid == 0) atomicAdd(tiles_visited, visited);
+
+  // The slots' (m, l, acc) through shared memory, folded in ascending slot
+  // order: output (r, d) by thread e = r·D + d (mod the block).
+  float* ml = reinterpret_cast<float*>(ring);            // [slot][row] (m, l)
+  float* as = ml + 2 * n_slot * rows;                   // [slot][row][D]
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+    if (wr + i * n_rw < rows) {
+      const int at = slot * rows + row[i];
+      if (lane == 0) {
+        ml[2 * at] = m[i];
+        ml[2 * at + 1] = l[i];
+      }
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) as[at * D + lane * kCols + c] = acc[i][c];
+    }
+  }
+  __syncthreads();
+  const size_t part = static_cast<size_t>(bh) * n_split;       // this (b, h)'s first split
+  const size_t n_parts = static_cast<size_t>(gridDim.y) * gridDim.z * n_split;
+  float* wacc = work;                                           // [bh][split][row][D]
+  float* wml = work == nullptr ? nullptr : work + n_parts * rows * D;   // [bh][split][row] (m, l)
+  for (int e = tid; e < rows * D; e += blockDim.x) {
+    const int r = e / D, d = e % D;
+    Fold f;
+    float A = 0.0f;
+    for (int s = 0; s < n_slot; ++s) {
+      f.add(ml[2 * (s * rows + r)], ml[2 * (s * rows + r) + 1], A, as[(s * rows + r) * D + d]);
+    }
+    if (n_split == 1) {
+      store(out + row_at(r) + d, A / fmaxf(f.l, 1e-30f));
+    } else {
+      const size_t pr = (part + split) * rows + r;
+      wacc[pr * D + d] = A;
+      if (d == 0) {
+        wml[2 * pr] = f.m;
+        wml[2 * pr + 1] = f.l;
+      }
+    }
+  }
+  if (n_split == 1) return;
+
+  // The last block of (b, h) to finish folds the splits in ascending order,
+  // `batch` at a time, each batch's (m, l) and acc loaded at once into
+  // shared memory: first each row's fold of (m, l), which keeps its weights
+  // e^(m - M) and e^(m' - M) for each split (wt), then each output's fold
+  // of acc with them (the arithmetic of Fold, in two passes).  A row's
+  // running (m, l) stays in rs, an output's acc in fold.
+  __syncthreads();                        // the block's partials are written
+  if (tid == 0) {
+    // acq_rel: the block's partials before its count; the others' after it
+    unsigned before;
+    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;\n"
+                 : "=r"(before) : "l"(counters + bh) : "memory");
+    *last = before == static_cast<unsigned>(n_split - 1);
+  }
+  __syncthreads();
+  if (*last == 0) return;
+  const int batch = max(1, ring_bytes / (static_cast<int>(sizeof(float)) * rows * (D + 4)));
+  float* bacc = reinterpret_cast<float*>(ring);         // [split][row][D]
+  float* bml = bacc + batch * rows * D;                 // [split][row] (m, l)
+  float* wt = bml + 2 * batch * rows;                   // [row][split] (a, b)
+  float* rs = fold + rows * D;                          // [row] (m, l)
+  for (int e = tid; e < rows * D; e += blockDim.x) fold[e] = 0.0f;
+  for (int r = tid; r < rows; r += blockDim.x) {
+    rs[2 * r] = kNegInf;
+    rs[2 * r + 1] = 0.0f;
+  }
+  for (int s0 = 0; s0 < n_split; s0 += batch) {
+    const int nb = min(batch, n_split - s0);
+    const float4* src = reinterpret_cast<const float4*>(wacc + (part + s0) * rows * D);
+    const float2* src_ml = reinterpret_cast<const float2*>(wml) + (part + s0) * rows;
+    const int n4 = nb * rows * D / 4, step = static_cast<int>(blockDim.x);
+    for (int e0 = tid; e0 < n4 + nb * rows; e0 += 8 * step) {   // 8 loads in flight a thread
+      float4 x[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int e = e0 + u * step;
+        if (e < n4) {
+          x[u] = __ldcg(src + e);
+        } else if (e < n4 + nb * rows) {
+          const float2 y = __ldcg(src_ml + e - n4);
+          x[u] = make_float4(y.x, y.y, 0.0f, 0.0f);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int e = e0 + u * step;
+        if (e < n4) {
+          reinterpret_cast<float4*>(bacc)[e] = x[u];
+        } else if (e < n4 + nb * rows) {
+          reinterpret_cast<float2*>(bml)[e - n4] = make_float2(x[u].x, x[u].y);
+        }
+      }
+    }
+    __syncthreads();
+    for (int r = tid; r < rows; r += blockDim.x) {
+      float m0 = rs[2 * r], l0 = rs[2 * r + 1];
+      for (int s = 0; s < nb; ++s) {
+        const float mp = bml[2 * (s * rows + r)], mx = fmaxf(m0, mp);
+        const float a = expf(m0 - mx), b = expf(mp - mx);
+        l0 = fmaf(bml[2 * (s * rows + r) + 1], b, l0 * a);
+        m0 = mx;
+        wt[2 * (r * batch + s)] = a;
+        wt[2 * (r * batch + s) + 1] = b;
+      }
+      rs[2 * r] = m0;
+      rs[2 * r + 1] = l0;
+    }
+    __syncthreads();
+    for (int e = tid; e < rows * D; e += blockDim.x) {
+      const int r = e / D, d = e % D;
+      float A = fold[e];
+      for (int s = 0; s < nb; ++s) {
+        A = fmaf(bacc[(s * rows + r) * D + d], wt[2 * (r * batch + s) + 1],
+                 A * wt[2 * (r * batch + s)]);
+      }
+      fold[e] = A;
+      if (s0 + nb == n_split) store(out + row_at(r) + d, A / fmaxf(rs[2 * r + 1], 1e-30f));
+    }
+    __syncthreads();
+  }
+  if (tid == 0) counters[bh] = 0;         // ready for the next launch
+}
+
+// The block's shape: row warps (one a row, up to 4), rows a warp, tile
+// slots (so that a block has up to 4 warps and a stage up to
+// kDecStageBytes), threads, and the shared memory: alignment, the ring, its
+// positions and flags, q, the fold's scratch, the mbarriers and a flag.
+template <typename T, int D>
+void decode_shape(int rows, int& n_rw, int& nr, int& n_slot, int& threads, size_t& smem) {
+  n_rw = min(rows, kDecWarps);
+  nr = (rows + n_rw - 1) / n_rw;
+  n_slot = max(1, min(kDecWarps / n_rw, kDecStageBytes / DecTile<T, D>::kBytes));
+  threads = 32 * n_rw * n_slot;
+  smem = 1024 + static_cast<size_t>(2) * n_slot * (DecTile<T, D>::kBytes + sizeof(DecMeta)) +
+         sizeof(T) * rows * D + sizeof(float) * rows * (D + 2) + 2 * sizeof(uint64_t) +
+         sizeof(int);
+}
+
+// The 1-D map of the positions (int32) or the flags (bytes) of T keys:
+// boxes of 32, zero past T.
+bool pos_map(CUtensorMap* map, const void* x, int Tk, bool bytes) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  return cached_map(map, MapKey{x, 0, Tk, 0, 0, bytes ? 3 : 2, kDecBK}, [&](CUtensorMap* m) {
+    const cuuint64_t dims[1] = {static_cast<cuuint64_t>(Tk)};
+    const cuuint64_t strides[1] = {0};    // (a rank-1 map has none)
+    const cuuint32_t box[1] = {static_cast<cuuint32_t>(kDecBK)};
+    const cuuint32_t step[1] = {1};
+    return encode(m, bytes ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_INT32, 1,
+                  const_cast<void*>(x), dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  });
+}
+
+struct DecMaps {
+  CUtensorMap k, v, pos, valid;
+};
+
+template <typename T, int D, int NR>
+int launch_decode_nr(const DecMaps& maps, const void* q, const int* q_pos, int has_valid,
+                     void* out, float* work, unsigned* counters, int B, int Sq, int Tk, int KV,
+                     int G, int causal, float scale, int n_split,
+                     unsigned long long* tiles_visited, cudaStream_t stream, int n_rw,
+                     int n_slot, int threads, size_t smem) {
+  // The shared memory any row count needs, allowed once a device (one bit
+  // a device; a second thread setting the same value is harmless).
+  static std::atomic<uint64_t> allowed{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if ((allowed.load(std::memory_order_relaxed) & bit) == 0) {
+    size_t most = 0;
+    for (int rows = 1; rows <= kDecMaxRows; ++rows) {
+      int a, b, c, d;
+      size_t bytes;
+      decode_shape<T, D>(rows, a, b, c, d, bytes);
+      if (bytes > most) most = bytes;
+    }
+    err = cudaFuncSetAttribute(flash_decode_kernel<T, D, NR>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(most));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    allowed.fetch_or(bit, std::memory_order_relaxed);
+  }
+  const dim3 grid(static_cast<unsigned>(n_split), KV, B);
+  flash_decode_kernel<T, D, NR><<<grid, threads, smem, stream>>>(
+      maps.k, maps.v, maps.pos, maps.valid, static_cast<const T*>(q), q_pos, has_valid,
+      static_cast<T*>(out), work, counters, Sq, Tk, KV, G, n_rw, n_slot, causal, scale,
+      tiles_visited);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int launch_decode(const void* q, const void* k, const void* v, const int* q_pos,
+                  const int* kv_pos, const unsigned char* kv_valid, void* out, float* work,
+                  unsigned* counters, int B, int Sq, int Tk, int KV, int G, int causal,
+                  float scale, int n_split, unsigned long long* tiles_visited,
+                  cudaStream_t stream) {
+  constexpr int bf16 = sizeof(T) == 2;
+  DecMaps maps;
+  if (!key_map(&maps.k, k, B, Tk, KV, D, bf16, kDecBK) ||
+      !key_map(&maps.v, v, B, Tk, KV, D, bf16, kDecBK) || !pos_map(&maps.pos, kv_pos, Tk, false) ||
+      (kv_valid != nullptr && !pos_map(&maps.valid, kv_valid, Tk, true))) {
+    return static_cast<int>(cudaErrorNotSupported);
+  }
+  if (kv_valid == nullptr) maps.valid = maps.pos;   // (never read)
+  int n_rw, nr, n_slot, threads;
+  size_t smem;
+  decode_shape<T, D>(Sq * G, n_rw, nr, n_slot, threads, smem);
+  // rows a warp: 1 up to 4 rows, 2 up to 8, else 4 (the last rows repeated)
+  auto go = [&](auto launch) {
+    return launch(maps, q, q_pos, kv_valid != nullptr, out, work, counters, B, Sq, Tk, KV, G,
+                  causal, scale, n_split, tiles_visited, stream, n_rw, n_slot, threads, smem);
+  };
+  if (nr == 1) return go(launch_decode_nr<T, D, 1>);
+  if (nr == 2) return go(launch_decode_nr<T, D, 2>);
+  return go(launch_decode_nr<T, D, 4>);
+}
 
 }  // namespace
 
@@ -1058,6 +1729,45 @@ int flash_attention_tc_launch(const void* q, const void* k, const void* v, const
   }
   return launch_tc<128>(q, k, v, q_pos, kv_pos, kv_valid, out, B, Sq, T, KV, G, causal, scale,
                         tiles_visited, s);
+}
+
+// The split-KV decode kernel on `stream`: as the SIMT kernel with Dh = Dv =
+// D in {64, 128}, Sq·G <= 16, k and v 16-byte aligned, and the keys cut
+// into `splits` (>= 1) ranges of whole 32-key tiles.  With splits > 1,
+// `work` holds B·KV·splits·Sq·G·(D + 2) floats (written before read) and
+// `counters` B·KV unsigned zeros, which the launch leaves at zero.
+// Returns a CUDA error code (0 = launched).
+int flash_attention_decode_launch(const void* q, const void* k, const void* v,
+                                  const int* q_pos, const int* kv_pos,
+                                  const unsigned char* kv_valid, void* out, int B, int Sq,
+                                  int T, int KV, int G, int D, int bf16, int causal, float scale,
+                                  int splits, float* work, unsigned* counters,
+                                  unsigned long long* tiles_visited, void* stream) {
+  if (B < 1 || Sq < 1 || T < 1 || KV < 1 || G < 1 || Sq * G > kDecMaxRows || B > 65535 ||
+      KV > 65535 || (D != 64 && D != 128) || splits < 1 ||
+      (splits > 1 && (work == nullptr || counters == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(kv_pos) |
+       reinterpret_cast<uintptr_t>(kv_valid)) % 16 != 0) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    return D == 64 ? launch_decode<__nv_bfloat16, 64>(q, k, v, q_pos, kv_pos, kv_valid, out,
+                                                      work, counters, B, Sq, T, KV, G, causal,
+                                                      scale, splits, tiles_visited, s)
+                   : launch_decode<__nv_bfloat16, 128>(q, k, v, q_pos, kv_pos, kv_valid, out,
+                                                       work, counters, B, Sq, T, KV, G, causal,
+                                                       scale, splits, tiles_visited, s);
+  }
+  return D == 64 ? launch_decode<float, 64>(q, k, v, q_pos, kv_pos, kv_valid, out, work,
+                                            counters, B, Sq, T, KV, G, causal, scale, splits,
+                                            tiles_visited, s)
+                 : launch_decode<float, 128>(q, k, v, q_pos, kv_pos, kv_valid, out, work,
+                                             counters, B, Sq, T, KV, G, causal, scale, splits,
+                                             tiles_visited, s);
 }
 
 const char* flash_attention_error_string(int code) {

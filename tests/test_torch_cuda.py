@@ -24,6 +24,8 @@ so it is held bit for bit too, with every NaN compared by position only
 IEEE 754 leaves which input NaN an operation on two returns to the
 implementation).
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -597,7 +599,8 @@ def test_seeded_encode_past_the_old_caps(cuda, name):
 # beyond that f32 bound.
 
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention_cuda  # noqa: E402
-from repro_torch.kernels.flash_attention.ops import kernel_path, tile_count  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import (forced_splits, kernel_path,  # noqa: E402
+                                                     sm_count, split_count, tile_count)
 from repro_torch.kernels.flash_attention.ref import bf16_ulp, tiles_visited  # noqa: E402
 
 FLASH_F32_ULPS = 4
@@ -643,11 +646,17 @@ def _flash_anchored(got, want, q, k, v, q_pos, kv_pos, **kw):
         assert float(err.max()) <= tol
 
 
+_FLASH_PATHS = ("tensor", "decode", "simt")
+
+
+def _flash_paths():
+    return tuple(getattr(flash_attention_cuda, f"launches_{p}") for p in _FLASH_PATHS)
+
+
 def _flash_path_ran(before, path):
     # the wrapper's counts by path: one launch, on `path`
-    after = (flash_attention_cuda.launches_tensor, flash_attention_cuda.launches_simt)
-    assert (after[0] - before[0], after[1] - before[1]) == \
-        ((1, 0) if path == "tensor" else (0, 1))
+    assert tuple(a - b for a, b in zip(_flash_paths(), before)) == \
+        tuple(int(p == path) for p in _FLASH_PATHS)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -661,7 +670,7 @@ def test_flash_prefill_matches_plain(cuda, dtype, G, Dh, S, causal):
     pos = torch.arange(S, dtype=torch.int32, device=cuda)
     path = "tensor" if dtype == torch.bfloat16 and S * G >= 64 else "simt"
     assert kernel_path(q, k, v) == path
-    before = (flash_attention_cuda.launches_tensor, flash_attention_cuda.launches_simt)
+    before = _flash_paths()
     with tile_count(cuda) as tiles:
         got = flash_attention_cuda(q, k, v, pos, pos, causal=causal)
     want = attention_ref(q, k, v, pos, pos, causal=causal)
@@ -681,7 +690,10 @@ def test_flash_prefill_matches_plain(cuda, dtype, G, Dh, S, causal):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("T", [1, 33, 2080])
 def test_flash_decode_and_ring_match_plain(cuda, dtype, T):
+    # the decode kernel, at the split count of its rule and forced to 1, 3 and
+    # more splits than tiles; two runs bit for bit
     q, k, v = _flash_inputs(3, 1, T, 4, 2, 128, dtype, T, cuda)
+    assert kernel_path(q, k, v) == "decode"
     p = T - 1
     kv_pos = torch.arange(T, dtype=torch.int32, device=cuda)
     cases = [(kv_pos, kv_pos <= p)]
@@ -692,14 +704,46 @@ def test_flash_decode_and_ring_match_plain(cuda, dtype, T):
         ring[T // 3] = torch.iinfo(torch.int32).max
         cases.append((ring, ring <= p))
     q_pos = torch.full((1,), p, dtype=torch.int32, device=cuda)
+    n_tiles = -(-T // 32)
     for kvp, valid in cases:
-        with tile_count(cuda) as tiles:
-            got = flash_attention_cuda(q, k, v, q_pos, kvp, causal=True, kv_valid=valid)
-        want = attention_ref(q, k, v, q_pos, kvp, causal=True, kv_valid=valid)
+        for splits in (None, 1, 3, n_tiles + 2):
+            before = _flash_paths()
+            with forced_splits(splits) if splits else contextlib.nullcontext():
+                with tile_count(cuda) as tiles:
+                    got = flash_attention_cuda(q, k, v, q_pos, kvp, causal=True, kv_valid=valid)
+                again = flash_attention_cuda(q, k, v, q_pos, kvp, causal=True, kv_valid=valid)
+            want = attention_ref(q, k, v, q_pos, kvp, causal=True, kv_valid=valid)
+            torch.cuda.synchronize()
+            _flash_close(got, want, v)
+            bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+            assert torch.equal(got.view(bits), again.view(bits))
+            n = splits or split_count(T, 3, 4, sm_count(q.device))
+            assert int(tiles) == tiles_visited(q_pos, kvp, B=3, KV=4, G=2, Dh=128, Dv=128,
+                                               path="decode", kv_valid=valid, splits=n)
+            assert tuple(a - b for a, b in zip(_flash_paths(), before)) == (0, 2, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_decode_offset_positions_and_flags_go_to_simt(cuda, dtype):
+    # the decode kernel copies kv_pos and kv_valid by TMA, which needs 16-byte
+    # boundaries: views off them are computed by the SIMT kernel, as JAX's
+    # sdpa_chunked takes them
+    T = 300
+    q, k, v = _flash_inputs(2, 1, T, 2, 2, 128, dtype, 11, cuda)
+    pos = torch.arange(-1, T, dtype=torch.int32, device=cuda)
+    flags = torch.ones(T + 3, dtype=torch.bool, device=cuda)
+    flags[T // 2] = False
+    q_pos = torch.full((1,), T - 1, dtype=torch.int32, device=cuda)
+    cases = ((pos[1:], flags[:T], "simt"), (pos[1:], None, "simt"),
+             (pos[1:].clone(), flags[3:], "simt"), (pos[1:].clone(), flags[3:].clone(), "decode"))
+    for kv_pos, valid, path in cases:
+        assert kernel_path(q, k, v, kv_pos, valid) == path
+        before = _flash_paths()
+        got = flash_attention_cuda(q, k, v, q_pos, kv_pos, causal=True, kv_valid=valid)
+        want = attention_ref(q, k, v, q_pos, kv_pos, causal=True, kv_valid=valid)
         torch.cuda.synchronize()
         _flash_close(got, want, v)
-        assert int(tiles) == tiles_visited(q_pos, kvp, B=3, KV=4, G=2, Dh=128, Dv=128,
-                                           path="simt", kv_valid=valid)
+        _flash_path_ran(before, path)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -764,11 +808,11 @@ def test_flash_wrapper_counts_and_rejects(cuda):
     q, k, v = _flash_inputs(1, 4, 4, 1, 2, 64, torch.float32, 4, cuda)
     pos = torch.arange(4, dtype=torch.int32, device=cuda)
     before = flash_attention_cuda.launches
-    counts = (flash_attention_cuda.launches_tensor, flash_attention_cuda.launches_simt)
-    flash_attention_cuda(q, k, v, pos, pos)
+    counts = _flash_paths()
+    flash_attention_cuda(q, k, v, pos, pos)              # 4 queries x 2 heads: decode
     flash_attention_cuda(q.cpu(), k.cpu(), v.cpu(), pos.cpu(), pos.cpu())
     assert flash_attention_cuda.launches - before == 1
-    _flash_path_ran(counts, "simt")
+    _flash_path_ran(counts, "decode")
     # Dh = 560, one past the old cap, now computes
     wide_q, wide_k = _flash_inputs(1, 4, 4, 1, 2, 560, torch.float32, 5, cuda)[:2]
     got = flash_attention_cuda(wide_q, wide_k, v, pos, pos)
@@ -781,6 +825,12 @@ def test_flash_wrapper_counts_and_rejects(cuda):
                 lambda: flash_attention_cuda(q, k.cpu(), v, pos, pos)):
         with pytest.raises(ValueError):
             bad()
+    with pytest.raises(ValueError):
+        with forced_splits(0):
+            pass
+    # forced splits are the decode kernel's: the SIMT kernel computes as before
+    with forced_splits(2):
+        assert torch.equal(flash_attention_cuda(wide_q, wide_k, v, pos, pos), got)
 
 
 def test_reduced_model_on_the_card_matches_the_cpu(cuda):

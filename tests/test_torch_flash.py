@@ -395,14 +395,18 @@ def test_plain_version_matches_sdpa_chunked_past_the_old_head_dim_cap(Dh, Dv, de
 
 def test_kernel_path_is_chosen_by_shape():
     # the tensor-core kernel: bf16, Dh = Dv in {64, 128}, Sq·G >= 64, and q, k,
-    # v on 16-byte boundaries; the SIMT kernel everything else
+    # v on 16-byte boundaries; the decode kernel: f32 or bf16, Dh = Dv in
+    # {64, 128}, Sq·G <= 16, and q, k, v, kv_pos and kv_valid on 16-byte
+    # boundaries; the SIMT kernel everything else
     from repro_torch.kernels.flash_attention.ops import kernel_path
 
-    def path(Sq, G, Dh, Dv=None, dtype=torch.bfloat16, offset=0):
+    def path(Sq, G, Dh, Dv=None, dtype=torch.bfloat16, offset=0, kv_offset=0):
         q, k, v = (torch.from_numpy(a).to(dtype)
                    for a in _inputs(1, Sq, 8, 1, G, Dh, seed=0, Dv=Dv))
         if offset:
             q = torch.cat([q.flatten(), q.flatten()[:offset]])[offset:].view(q.shape)
+        if kv_offset:
+            k = torch.cat([k.flatten(), k.flatten()[:kv_offset]])[kv_offset:].view(k.shape)
         return kernel_path(q, k, v)
 
     assert path(64, 1, 128) == path(32, 2, 64) == path(8, 8, 128) == "tensor"
@@ -410,3 +414,22 @@ def test_kernel_path_is_chosen_by_shape():
     assert path(64, 1, 128, dtype=torch.float32) == "simt"
     assert path(64, 1, 96) == path(64, 1, 128, Dv=64) == "simt"
     assert path(64, 1, 128, offset=1) == "simt"                # 2 bytes off a boundary
+    # decode: one query of up to 16 heads a KV head, or a few queries of fewer
+    assert path(1, 2, 128) == path(1, 8, 64) == path(1, 1, 128) == "decode"
+    assert path(2, 8, 128) == path(1, 16, 64) == path(16, 1, 128) == "decode"
+    assert path(1, 2, 128, dtype=torch.float32) == path(4, 4, 64, dtype=torch.float32) == \
+        "decode"
+    assert path(1, 2, 128, offset=1) == "simt"                 # q copied 16 bytes at a time
+    assert path(17, 1, 128) == path(3, 8, 64) == "simt"        # more than 16 rows
+    assert path(1, 2, 96) == path(1, 2, 128, Dv=64) == path(1, 8, 576, Dv=512) == "simt"
+    assert path(1, 2, 128, kv_offset=1) == "simt"              # k off a 16-byte boundary
+    # the decode kernel copies the keys' positions and flags by TMA too: a
+    # view of either off a 16-byte boundary goes to the SIMT kernel
+    q, k, v = (torch.from_numpy(a) for a in _inputs(1, 1, 8, 1, 2, 128, seed=0))
+    pos = torch.arange(9, dtype=torch.int32)
+    flags = torch.ones(17, dtype=torch.bool)
+    assert kernel_path(q, k, v, pos[:8], flags[:8]) == "decode"
+    assert kernel_path(q, k, v, pos[1:], flags[:8]) == "simt"  # 4 bytes off
+    assert kernel_path(q, k, v, pos[:8], flags[1:9]) == "simt"  # 1 byte off
+    assert kernel_path(q, k, v, pos[1:]) == "simt"
+    assert kernel_path(q, k, v, None, flags[:8]) == "decode"
