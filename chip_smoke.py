@@ -126,13 +126,19 @@ Phases, each printing its own lines:
    slots.  Prints prefill and decode times and tokens/s, the kernel's share
    of a decode step and of a prefill, the device's busy share and the
    peak memory;
-18. the tiled GEMM (the moment encode of phases 4, 5, 7 and 8, one launch
-   each, counted) against its plain version and float64: the JAX sweep's
-   shapes in f32 and bf16 and the encodes of phases 4, 5 (each of its 32
-   blocks) and 7, within K·2^-24·(|A|·|B|) of float64, at most twice
-   torch.matmul's distance, two runs bit for bit; timed at phase 5's
-   block and over its whole encode beside torch.matmul and the bound, and
-   coded_matvec at phase 5's worker products beside torch.bmm;
+18. the GEMM (the moment encode of phases 4, 5, 7 and 8, one launch of the
+   product kernel and two of the split pass each, counted): the split pass
+   against its plain version bit for bit (special values, phase 5's G and
+   M); the GEMM against its plain version and float64: the JAX sweep's
+   shapes in f32 and bf16, (100, 37, 65) and (300, 1029, 257) in f32, bf16
+   and mixed, and the encodes of phases 4, 5 (each of its 32 blocks) and
+   7, within K·2^-24·(|A|·|B|) of float64, at most twice torch.matmul's
+   distance, two runs bit for bit; NaN and inf where torch.matmul puts
+   them; HGMMA and TMA loads in the built library's SASS; timed at phase
+   5's block and over its whole encode beside torch.matmul, the bf16
+   tensor-core bound and the old f32 one, the split pass and the product
+   kernel apart, and coded_matvec at phase 5's worker products beside
+   torch.bmm;
 19. Scheme 1 in the paper's setting on phase 4's masks against the same
    problem's float64 Scheme 1 run (the bound of phase 4), M θ within
    κ·k·2^-24 of float64 on every step whose surviving rows have full
@@ -159,6 +165,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -952,11 +959,19 @@ def exact_blocks(code, prob) -> dict:
             "b": mom.b}
 
 
-def gemm_phase(dev: torch.device, seed: int, paper4: dict, full5: dict) -> dict:
-    """Phase 18: the tiled GEMM against its plain version and float64 over
-    the JAX sweep's shapes and the encode shapes of phases 4, 5 and 7, then
-    timed at phase 5's shapes.  Returns the numbers of the kernels line."""
-    from repro_torch.kernels.block_matmul import block_matmul, block_matmul_ref, coded_matvec
+def gemm_phase(dev: torch.device, seed: int, paper4: dict, full5: dict) -> tuple[dict, dict]:
+    """Phase 18: the split pass against its plain version bit for bit; the
+    GEMM against its plain version and float64 over the JAX sweep's shapes
+    (and mixed f32 and bf16 inputs) and the encode shapes of phases 4, 5
+    and 7, NaN and inf where torch.matmul puts them; the built library's
+    tensor-core and TMA instructions (SASS); then timed at phase 5's shapes,
+    the split pass and the product kernel apart and together.  Returns the
+    numbers of the kernels line: the GEMM's and the split pass's."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.block_matmul import (block_matmul, block_matmul_ref, coded_matvec,
+                                                  products_of_terms, split_terms,
+                                                  split_terms_ref)
+    from repro_torch.kernels.block_matmul.ref import PRODUCT_ORDER
     gen = torch.Generator(device=dev).manual_seed(seed + 18)
 
     def held(got, A, B, what, exact=None) -> tuple[float, float]:
@@ -975,6 +990,43 @@ def gemm_phase(dev: torch.device, seed: int, paper4: dict, full5: dict) -> dict:
               f"float64, more than 2x torch.matmul's {lib:.3e}")
         return float((got - plain).abs().max()), float(err.max()) / max(lib, 1e-30)
 
+    def same_terms(a, b) -> bool:
+        return a.shape == b.shape and torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+    # the split pass against its plain version, bit for bit: values across
+    # the exponent range, bf16's overflow edge, subnormals, inf, NaN, -0
+    t0 = time.perf_counter()
+    specials = torch.tensor([3.4028235e38, -3.4028235e38, 3.39e38, float("inf"),
+                             -float("inf"), float("nan"), -0.0, 1e-45, 2.0 ** -126,
+                             2.0 ** -111 + 2.0 ** -134], device=dev)
+    n_split = 0
+    for shape in ((1, 1), (37, 65), (300, 1029), (3, 70, 33)):
+        x = torch.randn(shape, generator=gen, device=dev) * torch.exp2(
+            torch.randint(-140, 128, shape, generator=gen, device=dev).float())
+        n = min(specials.numel(), x.numel())
+        x.view(-1)[:n] = specials[:n]
+        for xx in (x, x.bfloat16()):
+            for tr in (False, True):
+                check(same_terms(split_terms(xx, tr), split_terms_ref(xx, tr)),
+                      f"split pass {tuple(shape)} {xx.dtype} transpose={tr}: kernel and plain "
+                      f"version differ")
+                n_split += 1
+    code5 = full5["code"]
+    G5 = torch.as_tensor(code5.G, dtype=torch.float32, device=dev)
+    M5, C5 = full5["M"], full5["scheme"].C_blocks
+    nb, K5, k5 = C5.shape[0], code5.K, M5.shape[1]
+    Mb5 = M5.reshape(nb, K5, k5)
+    check(same_terms(split_terms(G5), split_terms_ref(G5)), "split pass of phase 5's G differs")
+    tB = split_terms(Mb5, transpose=True)
+    for i in range(nb):                       # block by block: the plain version's temporaries
+        check(same_terms(tB[i:i + 1], split_terms_ref(Mb5[i], transpose=True)),
+              f"split pass of phase 5's block {i} differs")
+    del tB
+    n_split += 1 + nb
+    print(f"[gemm] split pass: {n_split} tensors (4 shapes with special values, f32 and bf16, "
+          f"both layouts; phase 5's G and its {nb} blocks of M, transposed) equal to the plain "
+          f"version bit for bit ({time.perf_counter() - t0:.1f} s)")
+
     t0 = time.perf_counter()
     worst, ratio, n = 0.0, 0.0, 0
     for dtype in (torch.float32, torch.bfloat16):
@@ -987,6 +1039,17 @@ def gemm_phase(dev: torch.device, seed: int, paper4: dict, full5: dict) -> dict:
             check(same_bits(got, again), f"({Mm}, {Kk}, {Nn}) {dtype}: two runs differ")
             e, r = held(got, A, B, f"({Mm}, {Kk}, {Nn}) {dtype}")
             worst, ratio, n = max(worst, e), max(ratio, r), n + 1
+    # the card tests' largest shape, and mixed inputs (one or three terms a side)
+    for Mm, Kk, Nn in ((100, 37, 65), (300, 1029, 257)):
+        for da, db in ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+                       (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)):
+            A = torch.randn((Mm, Kk), generator=gen, device=dev).to(da)
+            B = torch.randn((Kk, Nn), generator=gen, device=dev).to(db)
+            got = block_matmul(A, B)
+            check(same_bits(got, block_matmul(A, B)), f"({Mm}, {Kk}, {Nn}) {da} x {db}: two "
+                  f"runs differ")
+            e, r = held(got, A, B, f"({Mm}, {Kk}, {Nn}) {da} x {db}")
+            worst, ratio, n = max(worst, e), max(ratio, r), n + 1
     # the encode shapes: phase 4 (20 blocks of the (40, 20) code over k = 400)
     # and phase 7 (K = k = 1024), from their own moments
     code4, M4 = paper4["code"], paper4["mom"].M
@@ -996,17 +1059,12 @@ def gemm_phase(dev: torch.device, seed: int, paper4: dict, full5: dict) -> dict:
     check(same_bits(got, block_matmul(G4, Mb4)), "phase 4 encode: two runs differ")
     e, r = held(got, G4.expand(Mb4.shape[0], *G4.shape), Mb4, "phase 4 encode")
     worst, ratio, n = max(worst, e), max(ratio, r), n + 1
-    code5 = full5["code"]
-    G5 = torch.as_tensor(code5.G, dtype=torch.float32, device=dev)
     M7 = full5["M7"]
     got = block_matmul(G5, M7)
     check(same_bits(got, block_matmul(G5, M7)), "phase 7 encode: two runs differ")
     e, r = held(got, G5, M7, "phase 7 encode")
     worst, ratio, n = max(worst, e), max(ratio, r), n + 1
     # phase 5: the 32 blocks phase 5's scheme holds, each against float64
-    M5, C5 = full5["M"], full5["scheme"].C_blocks
-    nb, K5, k5 = C5.shape[0], code5.K, M5.shape[1]
-    Mb5 = M5.reshape(nb, K5, k5)
     again = block_matmul(G5, Mb5)
     torch.cuda.synchronize()
     check(same_bits(C5, again), "phase 5 encode: a second run differs from the first")
@@ -1016,14 +1074,40 @@ def gemm_phase(dev: torch.device, seed: int, paper4: dict, full5: dict) -> dict:
         e, r = held(C5[i], G5, Mb5[i], f"phase 5 encode block {i}")
         worst5, ratio5 = max(worst5, e), max(ratio5, r)
     worst, ratio, n = max(worst, worst5), max(ratio, ratio5), n + nb
-    print(f"[gemm] {n} products (the JAX sweep's 5 shapes in f32 and bf16; the encodes of "
-          f"phases 4 and 7; phase 5's {nb} blocks of ({G5.shape[0]} x {K5}) @ ({K5} x {k5})): "
-          f"all within K·2^-24·(|A|·|B|) of float64, at most {ratio:.3f}x torch.matmul's "
-          f"distance from float64 (bound 2x; phase 5's blocks {ratio5:.3f}x), two runs bit for "
-          f"bit; max |kernel - plain| {worst:.3e} (phase 5 {worst5:.3e}) "
+    # non-finite inputs: NaN and inf where torch.matmul puts them
+    A = torch.randn((70, 40), generator=gen, device=dev)
+    B = torch.randn((40, 90), generator=gen, device=dev)
+    A[3, 5], A[10, 7], A[30, 7], A[20, 9] = float("inf"), float("nan"), -float("inf"), 0.0
+    B[5, 2], B[9, 11], B[7, 50] = 0.0, -float("inf"), float("inf")
+    got, want = block_matmul(A, B), torch.matmul(A, B)
+    for what, f in (("NaN", torch.isnan), ("+inf", lambda t: t == float("inf")),
+                    ("-inf", lambda t: t == -float("inf"))):
+        check(torch.equal(f(got), f(want)), f"non-finite inputs: {what} not where torch.matmul "
+              f"puts it")
+    print(f"[gemm] {n} products (the JAX sweep's 5 shapes in f32 and bf16; (100, 37, 65) and "
+          f"(300, 1029, 257) in f32, bf16 and mixed; the encodes of phases 4 and 7; phase 5's "
+          f"{nb} blocks of ({G5.shape[0]} x {K5}) @ ({K5} x {k5})): all within "
+          f"K·2^-24·(|A|·|B|) of float64, at most {ratio:.3f}x torch.matmul's distance from "
+          f"float64 (bound 2x; phase 5's blocks {ratio5:.3f}x), two runs bit for bit; max "
+          f"|kernel - plain| {worst:.3e} (phase 5 {worst5:.3e}); NaN "
+          f"({int(torch.isnan(want).sum())}) and inf ({int(torch.isinf(want).sum())}) where "
+          f"torch.matmul puts them "
           f"({time.perf_counter() - t0:.1f} s)")
 
-    # timing at phase 5's shapes, TF32 off (phase 1)
+    # the built library: its products on the tensor cores, its operands by TMA
+    lib_path = build.build_all(["block_matmul"])["block_matmul"]
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "--dump-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    n_hgmma, n_tma = sass.count("HGMMA"), sass.count("UTMALDG")
+    check(n_hgmma > 0 and n_tma > 0, f"the library's SASS has {n_hgmma} HGMMA and {n_tma} "
+          f"UTMALDG instructions")
+    print(f"[gemm] SASS of {lib_path.name}: {n_hgmma} HGMMA (wgmma) and {n_tma} UTMALDG (TMA "
+          f"loads) instructions")
+
+    # timing at phase 5's shapes, TF32 off (phase 1).  The product kernel runs
+    # the term products with i + j <= PRODUCT_ORDER on the bf16 tensor cores.
+    n_prod = sum(1 for i in range(3) for j in range(3) if i + j <= PRODUCT_ORDER)
     out = {"max_abs_err": worst}
     A1, B1 = G5, Mb5[0]
     flops1 = 2 * G5.shape[0] * K5 * k5
@@ -1037,17 +1121,45 @@ def gemm_phase(dev: torch.device, seed: int, paper4: dict, full5: dict) -> dict:
         ms = cuda_ms(kern, 3)
         plain_ms = cuda_ms(plain, 3)
         lib_ms = cuda_ms(lib, 3)
-        ops_ms, bytes_ms = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms, bytes_ms = n_prod * flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        f32_ms = flops / F32_FLOPS * 1e3
         bound_ms = max(ops_ms, bytes_ms)
         bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
-        note = ("; torch.matmul beats the bound: it cannot at f32, so it is not computing in "
-                "f32 FMAs (TF32?)" if lib_ms < bound_ms else "")
-        print(f"[gemm] {what}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
-              f"version (torch.matmul, f32) {plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms; "
-              f"bound {bound_ms:.4f} ms by {bound_by} ({flops} FLOP at 67 TFLOP/s = "
-              f"{ops_ms:.4f} ms; {nbytes} B at 3.35 TB/s = {bytes_ms:.4f} ms){note}")
+        note = ("; torch.matmul beats the f32 bound: it cannot at f32, so it is not computing in "
+                "f32 FMAs (TF32?)" if lib_ms < f32_ms else "")
+        print(f"[gemm] {what}: kernels {ms:.4f} ms ({flops / ms / 1e9:.1f} f32-TFLOP/s, "
+              f"{'faster' if ms < lib_ms else 'slower'} than torch.matmul), plain version "
+              f"(torch.matmul, f32) {plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms; bound "
+              f"{bound_ms:.4f} ms by {bound_by} ({n_prod} bf16 products of {flops} FLOP at "
+              f"989 TFLOP/s = {ops_ms:.4f} ms; {nbytes} B at 3.35 TB/s = {bytes_ms:.4f} ms); "
+              f"the f32 bound of the SIMT design {f32_ms:.4f} ms ({flops} FLOP at 67 TFLOP/s)"
+              f"{note}")
         out.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                   bound_by=bound_by)
+                   bound_by=bound_by, f32_bound_ms=f32_ms)
+    # the two kernels apart, at the whole encode
+    split_ms = cuda_ms(lambda: (split_terms(G5), split_terms(Mb5, transpose=True)), 3)
+    split_plain_ms = cuda_ms(lambda: [split_terms_ref(G5)]
+                             + [split_terms_ref(Mb5[i], transpose=True) for i in range(nb)], 1)
+    split_bytes = (G5.numel() + M5.numel()) * (4 + 3 * 2)
+    split_bound_ms = split_bytes / HBM_BYTES_PER_S * 1e3
+    tA, tB = split_terms(G5), split_terms(Mb5, transpose=True)
+    main_ms = cuda_ms(lambda: products_of_terms(tA, tB), 3)
+    main_bytes = (tA.numel() + tB.numel()) * 2 + C5.numel() * 4
+    main_ops_ms = n_prod * flops1 * nb / BF16_FLOPS * 1e3
+    main_bytes_ms = main_bytes / HBM_BYTES_PER_S * 1e3
+    main_bound_ms = max(main_ops_ms, main_bytes_ms)
+    del tA, tB
+    print(f"[gemm] the whole encode's two kernels apart: the split pass (G and the {nb} blocks "
+          f"of M) {split_ms:.4f} ms, its plain version (block by block) {split_plain_ms:.4f} "
+          f"ms, bound {split_bound_ms:.4f} ms by bytes ({split_bytes} B: f32 read, three bf16 "
+          f"terms written); the product kernel {main_ms:.4f} ms "
+          f"({n_prod * flops1 * nb / main_ms / 1e9:.1f} bf16-TFLOP/s), bound "
+          f"{main_bound_ms:.4f} ms by {'operations' if main_ops_ms >= main_bytes_ms else 'bytes'}"
+          f" ({n_prod} bf16 products {main_ops_ms:.4f} ms; its {main_bytes} B "
+          f"{main_bytes_ms:.4f} ms)")
+    out.update(split_ms=split_ms, main_ms=main_ms, main_bound_ms=main_bound_ms)
+    split = {"max_abs_err": 0.0, "ms": split_ms, "plain_ms": split_plain_ms,
+             "bound_ms": split_bound_ms, "bound_by": "bytes", "library_ms": None}
     # coded_matvec at phase 5's worker-product shape: all 32 blocks' rows
     theta = full5["theta"]
     C2 = C5.reshape(-1, k5)
@@ -1059,10 +1171,10 @@ def gemm_phase(dev: torch.device, seed: int, paper4: dict, full5: dict) -> dict:
     bmm_ms = cuda_ms(lambda: full5["scheme"].worker_products(theta), 10)
     mv_bound = (C2.numel() + k5 + C2.shape[0]) * 4 / HBM_BYTES_PER_S * 1e3
     print(f"[gemm] coded_matvec at phase 5's worker products (({C2.shape[0]} x {k5}) @ "
-          f"({k5},)): kernel {mv_ms:.4f} ms, torch.bmm (the scheme's worker products) "
+          f"({k5},)): kernels {mv_ms:.4f} ms, torch.bmm (the scheme's worker products) "
           f"{bmm_ms:.4f} ms, bound {mv_bound:.4f} ms by bytes; max |kernel - bmm| "
-          f"{mv_err:.3e} (a 64-wide tile for one column: this shape stays on torch.bmm)")
-    return out
+          f"{mv_err:.3e} (a 128-wide tile for one column: this shape stays on torch.bmm)")
+    return out, split
 
 
 def scheme1_phase(dev: torch.device, seed: int, paper4: dict, full5: dict) -> None:
@@ -1283,7 +1395,7 @@ def main() -> int:
     from repro_torch.kernels.ldpc_peel import ops as peel_ops
     from repro_torch.serving import CodedQuery, CodedQueryBatcher
     from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.kernels.block_matmul import block_matmul
+    from repro_torch.kernels.block_matmul import block_matmul, split_terms
     from repro_torch.kernels.ldpc_peel import check_pass_cuda
 
     wrappers = {"decode_fused": peel_decode_cuda, "decode_fused_batch": peel_decode_batch_cuda,
@@ -1296,7 +1408,8 @@ def main() -> int:
                 "encode_seeded_fused": encode_seeded_fused_cuda,
                 "decode_replay": peel_decode_replay_cuda,
                 "flash_call": flash_attention_cuda,
-                "matmul_kernel_call": block_matmul, "check_pass": check_pass_cuda}
+                "matmul_kernel_call": block_matmul, "split_terms": split_terms,
+                "check_pass": check_pass_cuda}
 
     def reset_counts() -> None:
         for w in wrappers.values():
@@ -1413,7 +1526,7 @@ def main() -> int:
     coded = Scheme2Blocked.build(code, mom, lr=prob.lr, decode_iters=12,
                                  decode_backend="cuda")
     torch.cuda.synchronize()
-    read_counts("paper setting encode", matmul_kernel_call=1)
+    read_counts("paper setting encode", matmul_kernel_call=1, split_terms=2)
     dense = dataclasses.replace(coded, decode_backend="dense")
     # the same problem in float64: the trajectory without f32 rounding (its
     # encode by torch.matmul in float64, apart from the kernel under test)
@@ -1500,12 +1613,17 @@ def main() -> int:
     lam = float(v @ (mom.M @ v))
     lr = 0.9 / lam
     reset_counts()                             # the encode: one launch for all 32 blocks
+    torch.cuda.synchronize()
+    pre_peak, enc_held = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t_enc = time.perf_counter()
     scheme = Scheme2Blocked.build(code, mom, lr=lr, decode_iters=D,
                                   decode_backend="cuda")
     torch.cuda.synchronize()
     enc_secs = time.perf_counter() - t_enc
-    enc_launches = read_counts("full-width encode", matmul_kernel_call=1)["matmul_kernel_call"]
+    enc_peak = torch.cuda.max_memory_allocated()
+    enc_launches = read_counts("full-width encode", matmul_kernel_call=1,
+                               split_terms=2)
     M5 = mom.M                                 # kept for phases 18-20
     del mom, v
     masks = torch.stack([FixedCountStragglers(s).sample(gen, code.N, dev)
@@ -1515,7 +1633,10 @@ def main() -> int:
           f"stragglers={s}: problem built on the card in "
           f"{time.perf_counter() - t0:.1f} s; lambda_max ~ {lam:.6f} "
           f"(100 power steps), lr = 0.9/lambda = {lr:.6f}; the encode (the GEMM "
-          f"kernel, {enc_launches} launch for {k // K} blocks) {enc_secs:.3f} s")
+          f"kernel, {enc_launches['matmul_kernel_call']} launch for {k // K} blocks, "
+          f"{enc_launches['split_terms']} of the split pass) {enc_secs:.3f} s; peak device "
+          f"memory during the encode {enc_peak / 2**30:.2f} GiB ({enc_held / 2**30:.2f} GiB "
+          f"held before it)")
     theta0 = torch.zeros(k, device=dev)
 
     reset_counts()                             # the main path's run
@@ -1548,7 +1669,7 @@ def main() -> int:
         t[0] += 1
 
     step_ms = cuda_ms(one_step, 10)
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    peak_gib = max(pre_peak, torch.cuda.max_memory_allocated()) / 2**30
     step_bound_ms = scheme.C_blocks.numel() * 4 / HBM_BYTES_PER_S * 1e3
     products_ms = cuda_ms(lambda: scheme.worker_products(res.theta), 10)
     matmul_ms = cuda_ms(lambda: torch.matmul(scheme.C_blocks, res.theta), 10)
@@ -1667,7 +1788,7 @@ def main() -> int:
     adaptive = Scheme2.build(code, mom7, lr=prob7.lr, decode_iters=budget7, adaptive=True,
                              decode_backend="cuda")
     torch.cuda.synchronize()
-    read_counts("adaptive step encode", matmul_kernel_call=1)
+    read_counts("adaptive step encode", matmul_kernel_call=1, split_terms=2)
     gen7 = torch.Generator(device=dev).manual_seed(args.seed + 7)
     masks7 = torch.stack([FixedCountStragglers(s7).sample(gen7, code.N, dev)
                           for _ in range(steps7)])
@@ -1736,7 +1857,7 @@ def main() -> int:
     scheme8 = Scheme2.build(code, mom7, lr=adaptive.lr, decode_iters=budget8,
                             decode_backend="cuda")
     torch.cuda.synchronize()
-    read_counts("serving encode", matmul_kernel_call=1)
+    read_counts("serving encode", matmul_kernel_call=1, split_terms=2)
     dense8 = dataclasses.replace(scheme8, decode_backend="dense")
     rng8 = np.random.default_rng(args.seed)
     thetas = rng8.standard_normal((nq, k7)).astype(np.float32)
@@ -2509,8 +2630,9 @@ def main() -> int:
     served = model_phase(dev, args.seed, reset_counts, read_counts)
 
     # -------------------------- 18. the GEMM against its plain version and float64
-    gemm = gemm_phase(dev, args.seed, paper4, full5)
-    gemm["launches"] = enc_launches
+    gemm, split = gemm_phase(dev, args.seed, paper4, full5)
+    gemm["launches"] = enc_launches["matmul_kernel_call"]
+    split["launches"] = enc_launches["split_terms"]
 
     # ------------------------------------------------------------- 19. Scheme 1
     scheme1_phase(dev, args.seed, paper4, full5)
@@ -2584,6 +2706,10 @@ def main() -> int:
         "name": "block_matmul.matmul_kernel_call", "route": "cuda",
         "source": "src/repro_torch/kernels/block_matmul/csrc/block_matmul.cu",
         "replaces": "src/repro/kernels/block_matmul/kernel.py:36", **gemm})
+    kernels.append({
+        "name": "block_matmul.split_terms", "route": "cuda",
+        "source": "src/repro_torch/kernels/block_matmul/csrc/block_matmul.cu",
+        "replaces": "src/repro/kernels/block_matmul/kernel.py:36", **split})
     kernels.append({
         "name": "ldpc_peel.check_pass", "route": "cuda",
         "source": "src/repro_torch/kernels/ldpc_peel/csrc/check_pass.cu",

@@ -855,10 +855,11 @@ def test_reduced_model_on_the_card_matches_the_cpu(cuda):
 
 
 # ---------------------------------------------------------- block matmul
-# The tiled product against its plain version (torch.matmul in f32) and
-# against float64: within K·2⁻²⁴·(|A|·|B|) of float64 entry by entry, and
-# no more than twice torch.matmul's own distance from float64 (plus 1e-30);
-# two runs bit for bit.
+# The product (the split pass, then the tensor-core product kernel) against
+# its plain version (torch.matmul in f32) and against float64: within
+# K·2⁻²⁴·(|A|·|B|) of float64 entry by entry, and no more than twice
+# torch.matmul's own distance from float64 (plus 1e-30); two runs bit for
+# bit.  The split pass against its plain version bit for bit.
 
 from repro_torch.kernels.block_matmul import block_matmul, coded_matvec, encode_gm  # noqa: E402
 from repro_torch.kernels.block_matmul.ref import block_matmul_ref  # noqa: E402
@@ -935,6 +936,113 @@ def test_encode_runs_the_kernel(cuda):
     Gt = torch.as_tensor(code.G, dtype=torch.float32, device=cuda)
     _mm_held(C, Gt.expand(2, *Gt.shape), M.reshape(2, 64, 128))
     _mm_held(C2, Gt, M[:64, :64])
+
+
+# The new tiling's edges and TMA alignment: K in {17, 1029} (one partial
+# stage of 64 columns, and 16 stages and a partial one), N in {1, 3, 257}
+# and M in {1, 65} (rows of a 16-byte TMA stride only after the split
+# pass's padding), f32, bf16 and mixed inputs, under the same gates.
+
+from repro_torch.kernels.block_matmul import products_of_terms, split_terms  # noqa: E402
+from repro_torch.kernels.block_matmul.ref import split_terms_ref  # noqa: E402
+
+_MIXED = {"f32": (torch.float32, torch.float32), "bf16": (torch.bfloat16, torch.bfloat16),
+          "bf16_f32": (torch.bfloat16, torch.float32), "f32_bf16": (torch.float32, torch.bfloat16)}
+
+
+@pytest.mark.parametrize("M", [1, 65])
+@pytest.mark.parametrize("N", [1, 3, 257])
+@pytest.mark.parametrize("K", [17, 1029])
+@pytest.mark.parametrize("dtypes", list(_MIXED))
+def test_block_matmul_edges_match_plain_and_float64(cuda, M, K, N, dtypes):
+    da, db = _MIXED[dtypes]
+    g = torch.Generator(device=cuda).manual_seed(M * K + N)
+    A = torch.randn((M, K), generator=g, device=cuda).to(da)
+    B = torch.randn((K, N), generator=g, device=cuda).to(db)
+    got = block_matmul(A, B)
+    again = block_matmul(A, B)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    _mm_held(got, A, B)
+
+
+@pytest.mark.parametrize("shared", ["A", "B"])
+def test_block_matmul_shared_operand_over_a_batch(cuda, shared):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    if shared == "A":                         # G over blocks of M, as the encode
+        A = torch.randn((65, 1029), generator=g, device=cuda)
+        B = torch.randn((3, 1029, 257), generator=g, device=cuda)
+    else:
+        A = torch.randn((3, 65, 17), generator=g, device=cuda)
+        B = torch.randn((17, 3), generator=g, device=cuda)
+    before = split_terms.launches
+    out = block_matmul(A, B)
+    torch.cuda.synchronize()
+    assert split_terms.launches - before == 2    # the shared operand split once
+    for i in range(3):
+        Ai = A if A.ndim == 2 else A[i]
+        Bi = B if B.ndim == 2 else B[i]
+        assert torch.equal(out[i].view(torch.int32), block_matmul(Ai, Bi).view(torch.int32))
+    _mm_held(out, A.expand(3, *A.shape) if A.ndim == 2 else A,
+             B.expand(3, *B.shape) if B.ndim == 2 else B)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (37, 65), (300, 1029), (3, 70, 33)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("transpose", [False, True], ids=["rows", "cols"])
+def test_split_terms_matches_plain_bit_for_bit(cuda, shape, dtype, transpose):
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    x = torch.randn(shape, generator=g, device=cuda) * torch.exp2(
+        torch.randint(-140, 128, shape, generator=g, device=cuda).float())
+    specials = torch.tensor([3.4028235e38, -3.4028235e38, 3.39e38, float("inf"),
+                             -float("inf"), float("nan"), -0.0, 1e-45, 2.0 ** -126,
+                             2.0 ** -111 + 2.0 ** -134], device=cuda)
+    n = min(specials.numel(), x.numel())
+    x.view(-1)[:n] = specials[:n]
+    x = x.to(dtype)
+    got = split_terms(x, transpose)
+    want = split_terms_ref(x, transpose)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("dtypes", ["f32", "bf16", "f32_bf16"])
+def test_block_matmul_nonfinite_where_matmul_puts_them(cuda, dtypes):
+    da, db = _MIXED[dtypes]
+    g = torch.Generator(device=cuda).manual_seed(11)
+    A = torch.randn((70, 40), generator=g, device=cuda)
+    B = torch.randn((40, 90), generator=g, device=cuda)
+    A[3, 5], A[10, 7], A[30, 7], A[20, 9] = float("inf"), float("nan"), -float("inf"), 0.0
+    B[5, 2], B[9, 11], B[7, 50], B[30, 60] = 0.0, -float("inf"), float("inf"), float("nan")
+    A, B = A.to(da), B.to(db)
+    got = block_matmul(A, B)
+    want = torch.matmul(A.float(), B.float())
+    for pick in (torch.isnan, lambda t: t == float("inf"), lambda t: t == -float("inf")):
+        assert torch.equal(pick(got), pick(want))
+    finite = torch.isfinite(want)
+    assert bool(torch.isnan(want).any()) and bool(torch.isinf(want).any()) and bool(finite.any())
+    exact = torch.matmul(A.double(), B.double())
+    bound = A.shape[-1] * 2.0 ** -24 * torch.matmul(A.double().abs(), B.double().abs())
+    assert bool(((got.double() - exact).abs() <= bound)[finite].all())
+
+
+def test_block_matmul_counts_launches_by_kernel(cuda):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    A = torch.randn((65, 17), generator=g, device=cuda)
+    Bb = torch.randn((2, 17, 3), generator=g, device=cuda)
+    counts = lambda: (split_terms.launches, block_matmul.launches)   # noqa: E731
+    before = counts()
+    block_matmul(A, Bb)                      # A shared: two splits, one product launch
+    coded_matvec(A, torch.randn(17, generator=g, device=cuda))
+    ta, tb = split_terms(A), split_terms(Bb[0], transpose=True)
+    out = products_of_terms(ta, tb)
+    block_matmul(A.cpu(), Bb.cpu())          # the plain version: no launch
+    torch.cuda.synchronize()
+    after = counts()
+    assert (after[0] - before[0], after[1] - before[1]) == (6, 3)
+    assert torch.equal(out[0], block_matmul(A, Bb[0]))
 
 
 # ------------------------------------------------------------ check pass
