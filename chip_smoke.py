@@ -990,8 +990,17 @@ def gemm_phase(dev: torch.device, seed: int, paper4: dict, full5: dict) -> tuple
               f"float64, more than 2x torch.matmul's {lib:.3e}")
         return float((got - plain).abs().max()), float(err.max()) / max(lib, 1e-30)
 
+    split_err = 0.0
+
     def same_terms(a, b) -> bool:
-        return a.shape == b.shape and torch.equal(a.view(torch.int16), b.view(torch.int16))
+        """Bit for bit; the largest |kernel term - plain term| goes to split_err."""
+        nonlocal split_err
+        if a.shape != b.shape:
+            return False
+        same = a.view(torch.int16) == b.view(torch.int16)
+        diff = torch.where(same, 0.0, (a.float() - b.float()).abs())
+        split_err = max(split_err, float(diff.max()))
+        return bool(same.all())
 
     # the split pass against its plain version, bit for bit: values across
     # the exponent range, bf16's overflow edge, subnormals, inf, NaN, -0
@@ -1025,7 +1034,8 @@ def gemm_phase(dev: torch.device, seed: int, paper4: dict, full5: dict) -> tuple
     n_split += 1 + nb
     print(f"[gemm] split pass: {n_split} tensors (4 shapes with special values, f32 and bf16, "
           f"both layouts; phase 5's G and its {nb} blocks of M, transposed) equal to the plain "
-          f"version bit for bit ({time.perf_counter() - t0:.1f} s)")
+          f"version bit for bit, max |kernel - plain| {split_err:.3e} "
+          f"({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
     worst, ratio, n = 0.0, 0.0, 0
@@ -1158,7 +1168,7 @@ def gemm_phase(dev: torch.device, seed: int, paper4: dict, full5: dict) -> tuple
           f" ({n_prod} bf16 products {main_ops_ms:.4f} ms; its {main_bytes} B "
           f"{main_bytes_ms:.4f} ms)")
     out.update(split_ms=split_ms, main_ms=main_ms, main_bound_ms=main_bound_ms)
-    split = {"max_abs_err": 0.0, "ms": split_ms, "plain_ms": split_plain_ms,
+    split = {"max_abs_err": split_err, "ms": split_ms, "plain_ms": split_plain_ms,
              "bound_ms": split_bound_ms, "bound_by": "bytes", "library_ms": None}
     # coded_matvec at phase 5's worker-product shape: all 32 blocks' rows
     theta = full5["theta"]

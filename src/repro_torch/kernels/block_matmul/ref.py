@@ -105,25 +105,24 @@ def split_terms_ref(x: torch.Tensor, transpose: bool = False) -> torch.Tensor:
     return out
 
 
-def terms_product_ref(ta: torch.Tensor, tb: torch.Tensor,
-                      order: int = PRODUCT_ORDER) -> torch.Tensor:
+def terms_product_ref(ta: torch.Tensor, tb: torch.Tensor) -> torch.Tensor:
     """The product kernel's function in float64, before its roundings: for
     the terms of A ``ta`` ``(nbA, terms, M, Kp)`` and of B, transposed, ``tb``
     ``(nbB, terms, N, Kp)`` (the split pass's layouts; a batch of 1 is
     shared), the sum of ``a_i @ b_jᵀ`` over the term products with ``i + j
-    <= order`` (0-based), ``(batch, M, N)``."""
+    <= PRODUCT_ORDER`` (0-based), ``(batch, M, N)``."""
     out = None
     for i in range(ta.shape[1]):
         for j in range(tb.shape[1]):
-            if i + j <= order:
+            if i + j <= PRODUCT_ORDER:
                 p = torch.matmul(ta[:, i].double(), tb[:, j].double().transpose(-1, -2))
                 out = p if out is None else out + p
     return out
 
 
-def products_ref(A: torch.Tensor, B: torch.Tensor, order: int = PRODUCT_ORDER) -> torch.Tensor:
+def products_ref(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """``A @ B`` as the kernels form it, in float64: the split pass's terms
     and :func:`terms_product_ref`.
     Shapes as :func:`block_matmul_ref`."""
-    out = terms_product_ref(split_terms_ref(A), split_terms_ref(B, transpose=True), order)
+    out = terms_product_ref(split_terms_ref(A), split_terms_ref(B, transpose=True))
     return out[0] if A.ndim == B.ndim == 2 else out

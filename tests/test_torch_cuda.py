@@ -967,6 +967,27 @@ def test_block_matmul_edges_match_plain_and_float64(cuda, M, K, N, dtypes):
     _mm_held(got, A, B)
 
 
+# The 2x gate over 40 seeds at short K, where the fold's first chunk holds
+# the whole sum: a wgmma step cuts its sum toward zero (up to 1 ulp of it),
+# which on one to three outputs can meet a torch.matmul that rounded well.
+@pytest.mark.parametrize("M,K,N", [(1, 1, 1), (1, 17, 3)])
+def test_block_matmul_short_k_over_40_seeds(cuda, M, K, N):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    failed = {}
+    for sd in range(40):
+        g = torch.Generator(device=cuda).manual_seed(1000 * sd + M * K + N)
+        A = torch.randn((M, K), generator=g, device=cuda)
+        B = torch.randn((K, N), generator=g, device=cuda)
+        A64, B64 = A.double(), B.double()
+        exact = torch.matmul(A64, B64)
+        err = (block_matmul(A, B).double() - exact).abs()
+        lib = float((block_matmul_ref(A, B).double() - exact).abs().max())
+        bound = K * 2.0 ** -24 * torch.matmul(A64.abs(), B64.abs())
+        if not bool((err <= bound).all()) or float(err.max()) > 2 * lib + 1e-30:
+            failed[sd] = float(err.max()) / max(lib, 1e-30)
+    assert not failed, f"seeds failing a gate (kernel's distance over torch.matmul's): {failed}"
+
+
 @pytest.mark.parametrize("shared", ["A", "B"])
 def test_block_matmul_shared_operand_over_a_batch(cuda, shared):
     g = torch.Generator(device=cuda).manual_seed(7)
