@@ -52,7 +52,9 @@ Phases, each printing its own lines:
    make_seeded_ldpc and on the structure-only SeededLDPC, all four
    contracts, bit-identical to each other and to the plain versions; then
    the structure-only decode at N = 262144, V = 1, D = 8 (H would be
-   128 GiB), exactly against its plain version;
+   128 GiB), exactly against its plain version; each kernel timed with
+   the grid or cluster it launched, and every layout a pattern can take
+   (one block, clusters of 2, 4 and 8) held bit for bit and timed;
 11. Path A, Scheme 2 with the on-the-fly seeded LDGM encode
    (Scheme2.build_seeded(encode_fused=True)): k = K = 16384,
    make_seeded_ldgm(16384, 8192, row_weight=8) so N = 24576 workers, M
@@ -133,8 +135,9 @@ Phases, each printing its own lines:
    shapes in f32 and bf16, (100, 37, 65) and (300, 1029, 257) in f32, bf16
    and mixed, and the encodes of phases 4, 5 (each of its 32 blocks) and
    7, within K·2^-24·(|A|·|B|) of float64, at most twice torch.matmul's
-   distance, two runs bit for bit; NaN and inf where torch.matmul puts
-   them; HGMMA and TMA loads in the built library's SASS; timed at phase
+   distance, two runs bit for bit; the card tests' short-K sweep ((1, 1,
+   1), (1, 17, 3), (1, 64, 3) and (4, 63, 5) over 40 seeds) under the same
+   gates; NaN and inf where torch.matmul puts them; HGMMA and TMA loads in the built library's SASS; timed at phase
    5's block and over its whole encode beside torch.matmul, the bf16
    tensor-core bound and the old f32 one, the split pass and the product
    kernel apart, and coded_matvec at phase 5's worker products beside
@@ -178,6 +181,10 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA's data sheet
 F32_FLOPS = 67e12                  # f32 outside the tensor cores, same sheet
 BF16_FLOPS = 989e12                # bf16 tensor cores, dense, same sheet
+# The f32 product's work in bf16 tensor-core products, for the GEMM's bound:
+# three bf16 terms a side and every pair but the smallest, what an
+# f32-accurate product takes on those cores; fixed across designs.
+GEMM_BOUND_PRODUCTS = 8
 
 
 def card_line() -> str:
@@ -288,6 +295,17 @@ def decode_bytes(p: int, r: int, B: int, N: int, V: int, extra: int = 0) -> int:
     f32 weights), values in and out (f32), masks in and out (one byte each),
     and ``extra`` (budgets in, rounds out)."""
     return p * r * 8 + 2 * B * N * V * 4 + 2 * B * N + extra
+
+
+def seeded_dispatch(st, B: int, V: int) -> str:
+    """The grid the seeded decode launches for B patterns of V payload
+    columns and where its per-block state lives (the wrapper's dispatch by
+    shape, ``ops.seeded_layout``)."""
+    from repro_torch.kernels.ldpc_peel import ops
+    C, in_shared = ops.seeded_layout(st, B, V, torch.device("cuda"))
+    grid = f"grid ({C * -(-V // 4)}, {B}) of 512-thread blocks"
+    return (f"{grid} in clusters of {C}" if C > 1 else f"{grid}, one a pattern") + \
+        f", state in {'shared' if in_shared else 'device'} memory"
 
 
 def same_bits(a, b) -> bool:
@@ -971,7 +989,7 @@ def gemm_phase(dev: torch.device, seed: int, paper4: dict, full5: dict) -> tuple
     from repro_torch.kernels.block_matmul import (block_matmul, block_matmul_ref, coded_matvec,
                                                   products_of_terms, split_terms,
                                                   split_terms_ref)
-    from repro_torch.kernels.block_matmul.ref import PRODUCT_ORDER
+    from repro_torch.kernels.block_matmul.ref import product_pairs
     gen = torch.Generator(device=dev).manual_seed(seed + 18)
 
     def held(got, A, B, what, exact=None) -> tuple[float, float]:
@@ -1084,6 +1102,23 @@ def gemm_phase(dev: torch.device, seed: int, paper4: dict, full5: dict) -> tuple
         e, r = held(C5[i], G5, Mb5[i], f"phase 5 encode block {i}")
         worst5, ratio5 = max(worst5, e), max(ratio5, r)
     worst, ratio, n = max(worst, worst5), max(ratio, ratio5), n + nb
+    # short K over 40 seeds, as the card tests run it: one chunk holds the
+    # whole sum, so the leads' product must reach the output uncut
+    t1 = time.perf_counter()
+    short = {}
+    for Mm, Kk, Nn in ((1, 1, 1), (1, 17, 3), (1, 64, 3), (4, 63, 5)):
+        worst_short = 0.0
+        for sd in range(40):
+            g = torch.Generator(device=dev).manual_seed(1000 * sd + Mm * Kk + Nn)
+            A = torch.randn((Mm, Kk), generator=g, device=dev)
+            B = torch.randn((Kk, Nn), generator=g, device=dev)
+            e, r = held(block_matmul(A, B), A, B, f"short K ({Mm}, {Kk}, {Nn}) seed {sd}")
+            worst_short = max(worst_short, r)
+        short[(Mm, Kk, Nn)] = worst_short
+    print(f"[gemm] short K over 40 seeds (the card tests' sweep): "
+          + ", ".join(f"{s_} at most {r_:.3f}x" for s_, r_ in short.items())
+          + f" torch.matmul's distance from float64 (bound 2x) "
+          f"({time.perf_counter() - t1:.1f} s)")
     # non-finite inputs: NaN and inf where torch.matmul puts them
     A = torch.randn((70, 40), generator=gen, device=dev)
     B = torch.randn((40, 90), generator=gen, device=dev)
@@ -1116,8 +1151,11 @@ def gemm_phase(dev: torch.device, seed: int, paper4: dict, full5: dict) -> tuple
           f"loads) instructions")
 
     # timing at phase 5's shapes, TF32 off (phase 1).  The product kernel runs
-    # the term products with i + j <= PRODUCT_ORDER on the bf16 tensor cores.
-    n_prod = sum(1 for i in range(3) for j in range(3) if i + j <= PRODUCT_ORDER)
+    # the term products of ref.product_pairs on the bf16 tensor cores.  The
+    # bound counts the f32 product as GEMM_BOUND_PRODUCTS bf16 products,
+    # whatever the kernel runs, so that a design running more shows as a
+    # larger share of it; the design's own count is printed beside it.
+    n_prod = len(product_pairs(4, 4))
     out = {"max_abs_err": worst}
     A1, B1 = G5, Mb5[0]
     flops1 = 2 * G5.shape[0] * K5 * k5
@@ -1131,7 +1169,9 @@ def gemm_phase(dev: torch.device, seed: int, paper4: dict, full5: dict) -> tuple
         ms = cuda_ms(kern, 3)
         plain_ms = cuda_ms(plain, 3)
         lib_ms = cuda_ms(lib, 3)
-        ops_ms, bytes_ms = n_prod * flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms, bytes_ms = (GEMM_BOUND_PRODUCTS * flops / BF16_FLOPS * 1e3,
+                            nbytes / HBM_BYTES_PER_S * 1e3)
+        design_ms = n_prod * flops / BF16_FLOPS * 1e3
         f32_ms = flops / F32_FLOPS * 1e3
         bound_ms = max(ops_ms, bytes_ms)
         bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
@@ -1140,33 +1180,35 @@ def gemm_phase(dev: torch.device, seed: int, paper4: dict, full5: dict) -> tuple
         print(f"[gemm] {what}: kernels {ms:.4f} ms ({flops / ms / 1e9:.1f} f32-TFLOP/s, "
               f"{'faster' if ms < lib_ms else 'slower'} than torch.matmul), plain version "
               f"(torch.matmul, f32) {plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms; bound "
-              f"{bound_ms:.4f} ms by {bound_by} ({n_prod} bf16 products of {flops} FLOP at "
-              f"989 TFLOP/s = {ops_ms:.4f} ms; {nbytes} B at 3.35 TB/s = {bytes_ms:.4f} ms); "
+              f"{bound_ms:.4f} ms by {bound_by} ({GEMM_BOUND_PRODUCTS} bf16 products of {flops} "
+              f"FLOP at 989 TFLOP/s = {ops_ms:.4f} ms; {nbytes} B at 3.35 TB/s = "
+              f"{bytes_ms:.4f} ms); this design's {n_prod} products {design_ms:.4f} ms; "
               f"the f32 bound of the SIMT design {f32_ms:.4f} ms ({flops} FLOP at 67 TFLOP/s)"
               f"{note}")
         out.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                   bound_by=bound_by, f32_bound_ms=f32_ms)
+                   bound_by=bound_by, f32_bound_ms=f32_ms, design_ms=design_ms)
     # the two kernels apart, at the whole encode
     split_ms = cuda_ms(lambda: (split_terms(G5), split_terms(Mb5, transpose=True)), 3)
     split_plain_ms = cuda_ms(lambda: [split_terms_ref(G5)]
                              + [split_terms_ref(Mb5[i], transpose=True) for i in range(nb)], 1)
-    split_bytes = (G5.numel() + M5.numel()) * (4 + 3 * 2)
+    split_bytes = (G5.numel() + M5.numel()) * (4 + 4 * 2)
     split_bound_ms = split_bytes / HBM_BYTES_PER_S * 1e3
     tA, tB = split_terms(G5), split_terms(Mb5, transpose=True)
     main_ms = cuda_ms(lambda: products_of_terms(tA, tB), 3)
     main_bytes = (tA.numel() + tB.numel()) * 2 + C5.numel() * 4
-    main_ops_ms = n_prod * flops1 * nb / BF16_FLOPS * 1e3
+    main_ops_ms = GEMM_BOUND_PRODUCTS * flops1 * nb / BF16_FLOPS * 1e3
     main_bytes_ms = main_bytes / HBM_BYTES_PER_S * 1e3
     main_bound_ms = max(main_ops_ms, main_bytes_ms)
     del tA, tB
     print(f"[gemm] the whole encode's two kernels apart: the split pass (G and the {nb} blocks "
           f"of M) {split_ms:.4f} ms, its plain version (block by block) {split_plain_ms:.4f} "
-          f"ms, bound {split_bound_ms:.4f} ms by bytes ({split_bytes} B: f32 read, three bf16 "
+          f"ms, bound {split_bound_ms:.4f} ms by bytes ({split_bytes} B: f32 read, four bf16 "
           f"terms written); the product kernel {main_ms:.4f} ms "
           f"({n_prod * flops1 * nb / main_ms / 1e9:.1f} bf16-TFLOP/s), bound "
           f"{main_bound_ms:.4f} ms by {'operations' if main_ops_ms >= main_bytes_ms else 'bytes'}"
-          f" ({n_prod} bf16 products {main_ops_ms:.4f} ms; its {main_bytes} B "
-          f"{main_bytes_ms:.4f} ms)")
+          f" ({GEMM_BOUND_PRODUCTS} bf16 products {main_ops_ms:.4f} ms; its {main_bytes} B "
+          f"{main_bytes_ms:.4f} ms; this design's {n_prod} products "
+          f"{n_prod * flops1 * nb / BF16_FLOPS * 1e3:.4f} ms)")
     out.update(split_ms=split_ms, main_ms=main_ms, main_bound_ms=main_bound_ms)
     split = {"max_abs_err": split_err, "ms": split_ms, "plain_ms": split_plain_ms,
              "bound_ms": split_bound_ms, "bound_by": "bytes", "library_ms": None}
@@ -2203,7 +2245,7 @@ def main() -> int:
     # The four kernels at Path B's shapes (f = 0.25), and at N = 262144.
     v, e, budgets = inputs10[0.25]
     v0, e0 = v[0].contiguous(), e[0].contiguous()
-    seeded_times = {}
+    seeded_times, seeded_plain = {}, {}
     for name, kern, plain, B, extra in (
             ("decode_seeded", lambda: peel_decode_seeded_cuda(st10, v0, e0, D10),
              lambda: decode_seeded_ref(st10, v0, e0, D10), 1, 0),
@@ -2216,16 +2258,54 @@ def main() -> int:
              lambda: peel_decode_batch_adaptive_seeded_cuda(st10, v, e, budgets),
              lambda: decode_seeded_batch_adaptive_ref(st10, v, e, budgets), B10, 8 * B10)):
         k_ms, p_ms = cuda_ms(kern, 50), cuda_ms(plain, 5)
+        seeded_plain[name] = plain()
         once = 2 * B * N10 * V10 * 4 + 2 * B * N10 + extra
         seeded_times[name] = (k_ms, p_ms, once / HBM_BYTES_PER_S * 1e3)
         print(f"[pathB] {name} kernel {k_ms:.4f} ms, plain version {p_ms:.4f} ms at "
               f"N={N10} B={B} V={V10} D={D10} f=0.25; bound "
-              f"{seeded_times[name][2]:.6f} ms ({once} B once, no table)")
-    big_ms = cuda_ms(lambda: peel_decode_seeded_cuda(decoder.seeded_spec(big), vb, eb, D10), 5)
+              f"{seeded_times[name][2]:.6f} ms ({once} B once, no table); launched "
+              f"{seeded_dispatch(st10, B, V10)}")
+    st_big = decoder.seeded_spec(big)
+    big_ms = cuda_ms(lambda: peel_decode_seeded_cuda(st_big, vb, eb, D10), 5)
     big_once = 2 * big.N * 4 + 2 * big.N
-    print(f"[pathB] decode_seeded at N={big.N} V=1 D={D10} (state in device memory): "
-          f"kernel {big_ms:.4f} ms; bound {big_once / HBM_BYTES_PER_S * 1e3:.6f} ms "
-          f"({big_once} B once)")
+    print(f"[pathB] decode_seeded at N={big.N} V=1 D={D10}: kernel {big_ms:.4f} ms; bound "
+          f"{big_once / HBM_BYTES_PER_S * 1e3:.6f} ms ({big_once} B once); launched "
+          f"{seeded_dispatch(st_big, 1, 1)}")
+    # The dispatch by shape: each layout a pattern can take (one block, or a
+    # cluster of 2, 4 or 8), bit for bit against the plain version, timed.
+    # And B = 64, where 64 clusters of 8 (or 4) would not all be resident.
+    e64 = torch.rand((64, N10), generator=gen10, device=dev) < 0.25
+    v64 = torch.where(e64[..., None], 0.0, torch.randn((64, N10, V10), generator=gen10,
+                                                       device=dev))
+    plain64 = decode_seeded_batch_ref(st10, v64, e64, D10)
+    by_cluster = {}
+    for C in (1, 2, 4, 8):
+        with peel_ops.forced_cluster(C):
+            row = []
+            for stc, fn, plain, reps in (
+                    (st10, lambda: peel_decode_seeded_cuda(st10, v0, e0, D10),
+                     seeded_plain["decode_seeded"], 20),
+                    (st10, lambda: peel_decode_batch_seeded_cuda(st10, v, e, D10),
+                     seeded_plain["decode_seeded_batch"], 20),
+                    (st10, lambda: peel_decode_batch_seeded_cuda(st10, v64, e64, D10), plain64,
+                     10),
+                    (st_big, lambda: peel_decode_seeded_cuda(st_big, vb, eb, D10), big_plain, 5)):
+                if not peel_ops.seeded_cluster_fits(stc, C):
+                    row.append(None)
+                    continue
+                check(all_same(tuple(fn())[:2], plain[:2]), f"Path B, a cluster of {C}: "
+                      f"kernel and plain version differ")
+                row.append(cuda_ms(fn, reps))
+            by_cluster[C] = row
+    print(f"[pathB] by blocks a pattern (1: one block; 2, 4, 8: a cluster), bit for bit: "
+          + "; ".join(f"{C}: " + ", ".join("does not fit" if x is None else f"{x:.4f}"
+                                           for x in row) for C, row in by_cluster.items())
+          + f" ms (decode_seeded B=1, decode_seeded_batch B={B10} and B=64, decode_seeded "
+          f"N={big.N}); the dispatch takes "
+          + ", ".join(f"{peel_ops.seeded_layout(stc, B, Vc, dev)[0]} at {what}" for stc, B, Vc, what in
+                      ((st10, 1, V10, "B=1"), (st10, B10, V10, f"B={B10}"),
+                       (st10, 64, V10, "B=64"), (st_big, 1, 1, f"N={big.N}"))))
+    del e64, v64, plain64
     del runs10, big_out, big_plain, vb, eb
 
     # ----------------------- 11. Path A: Scheme 2 with the fused seeded encode

@@ -7,9 +7,11 @@ caller asks for it (``device="cpu"``), as the tests do.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "sm_count"]
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -23,3 +25,9 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run on the CPU")
     return dev
+
+
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    """The SM count of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -12,71 +12,81 @@
 // A or B shared by the whole batch when given once (G is shared by the k/K
 // blocks of M).  Two kernels, launched in turn by the wrapper (ops.py):
 //
-// * split_rows_kernel / split_cols_kernel, the split pass.  Every f32 value
-//   x becomes three bf16 terms x1 + x2 + x3: x1 the bf16 rounding of x (to
-//   nearest, or toward zero where to nearest would give inf: |x| past
-//   3.3895e38), x2 the rounding of r = x - x1, x3 the rounding of r - x2.
-//   Both differences are exact in f32, and r - x2 fits in 8 bits, so the
-//   terms sum to x exactly whenever |x| >= 2^-110 (all three terms are
-//   then normal bf16 numbers, or zero).  Below, the third term is rounded
-//   to bf16's subnormal grid: |x - (x1 + x2 + x3)| <= 2^-134.  |x2| <=
-//   2^-8|x| and |x3| <= 2^-16|x|.  A bf16 value x becomes two terms of 4
-//   significant bits, x1 its bits with the last 4 of the fraction cleared
-//   and x2 = x - x1, exact (why two, below).  An inf or NaN is its own
-//   first term (an f32 NaN as 0x7FC0), with zeros after it.  The terms go
-//   to buffers of rows padded with zeros to a multiple of 8 values (16
-//   bytes, as a TMA stride must be): A's as (planes, M, Kp), k contiguous;
-//   B's transposed, as (planes, N, Kp), so that both operands are K-major.
-//   A shared operand is split once.  ref.split_terms_ref is its plain
-//   version, bit for bit.
+// * split_rows_kernel / split_cols_kernel, the split pass.  Along k, in
+//   chunks of 64 values of a row of A (a column of B), E is the largest
+//   exponent of a finite value and 2^(E-7) the chunk's grid.  Every value x
+//   becomes a lead term g, x cut toward zero to the grid (at most 8
+//   significant bits, so a bf16 number, below 2^8 grid units), and the bf16
+//   terms of the rest r = x - g (exact in f32, below one grid unit): of an
+//   f32 value three, r1 the bf16 rounding of r (to nearest), r2 that of r -
+//   r1, r3 that of the rest, so four terms that sum to x exactly whenever
+//   |x| >= 2^-110 (within 2^-134 below, where r3 falls under bf16's
+//   subnormal grid); of a bf16 value one, r itself (at most 8 bits).  An inf
+//   or NaN is its own lead (an f32 NaN as 0x7FC0), zeros after it, and no
+//   part of its chunk's grid.  The terms go to buffers of rows padded with
+//   zeros to a multiple of 8 values (16 bytes, as a TMA stride must be): A's
+//   as (planes, M, Kp), k contiguous; B's transposed, as (planes, N, Kp), so
+//   that both operands are K-major.  A shared operand is split once.
+//   ref.split_terms_ref is its plain version, bit for bit.
 // * gemm_kernel, the products.  a·b is the sum of the term products
-//   a_i·b_j, each exact in f32 (at most 8 x 8 significant bits).  The
-//   kernel runs those with i + j <= 5 (1-based): of two f32 operands eight
-//   of the nine, dropping a3·b3 alone, |a3·b3| <= 2^-32|a|·|b|; with a bf16
-//   operand all of them, so nothing is dropped.  (Dropping the pair with i
-//   + j = 5 too, six products, leaves up to 2^-23|a|·|b| per product: as
-//   large as f32's own rounding, and a single product then strays past
-//   the correctly rounded one.)
+//   a_i·b_j, each exact in f32 (at most 8 x 8 significant bits).  Term i
+//   lies below 2^(E - L_i) of its chunk's scale, L = (0, 7, 15, 23) for an
+//   f32 operand and (0, 7) for a bf16 one, and the kernel runs the products
+//   with L_i + L_j <= 23: ten of two f32 operands, seven of mixed ones, all
+//   four of two bf16 ones.  Each dropped product lies below 2^-30 of the
+//   chunk's scale (ref.product_pairs).
 //
 // The fold.  A wgmma step aligns its 16 products and the accumulator to
 // the largest, cuts the bits that fall below about 2^-24 of it, and rounds
-// toward zero: within 1 ulp a step, biased, so over a chunk of L steps the
-// error grows with L (PERF.md: the probe of chunks of 16 to 1024 exact
-// products against float64).  So no accumulator holds the whole sum.  Two
-// are kept per output: h, a1b1, and t, every smaller product, both summed
-// on the tensor cores over a chunk of kFold = 4 steps (64 columns of k).  At
-// a chunk's end the output's sum s takes h, then t, each by an error-free
-// TwoSum (six f32 additions each, in ascending chunk order), and t
-// restarts from the two errors.  The output is s + t, rounded once (or s
-// alone where s is inf or NaN: a non-finite input gives NaN or inf through
-// a1b1 exactly as IEEE arithmetic gives it to torch.matmul, and t, which
-// inf·0 may poison in the same chunk, stays out of s).  So the sum is
-// exact at every chunk's end and each chunk's error is the cut of its
-// steps.  With bf16 inputs torch.matmul sums the exact 16-bit products
-// almost exactly, while a step of 16-bit products cuts any product below
-// 2^-9 of the largest: as two 4-bit terms a bf16 value gives 8-bit
-// products, cut only below 2^-17 of the largest.  No split over k and no
-// atomics: a product is the same bits from run to run.
+// toward zero: within 1 ulp a step.  Two accumulators are kept per output:
+// h, the leads' product g_a·g_b, and t, every smaller product, both summed
+// on the tensor cores over a chunk of kFold = 4 steps (64 columns of k,
+// one grid).  Every g_a·g_b of a chunk is an integer number of the grid
+// units' product below 2^16, so h's partial sums stay below 2^22 units and
+// no step cuts a bit of them: h is exact.  (Before the grid, h held a1·b1
+// of the values' own bf16 roundings: when K <= 64 one chunk held the whole
+// sum, and a step's cut, up to 1 ulp of it, could meet a torch.matmul that
+// rounded to nearest, past the card's 2x gate; narrower terms only made
+// that rarer.)  t lies below 2^-6 of the chunk's scale, so its cut is
+// below 2^-30 of it.  At a chunk's end the output's sum s takes h, then t,
+// each by an error-free TwoSum (six f32 additions each, in ascending chunk
+// order), and t restarts from the two errors.  The output is s + t, rounded
+// once.  No split over k and no atomics: a product is the same bits from run
+// to run.
+//
+// Non-finite inputs.  A lead is 0 for a value below its chunk's grid, so a
+// finite x times an inf of the other operand may meet it as 0·inf in h.
+// So the products do not carry IEEE's non-finite results; instead every
+// thread looks, in each stage, at its share of the two lead tiles for an
+// inf or NaN (the only places one can be).  A block that saw one rebuilds
+// each of its outputs' class over k in its epilogue from the leads and
+// first remainders (sign of the value, zero, inf or NaN, as torch.matmul's
+// IEEE sum would meet them; a zero lead is +0 for a zero value and -0 for
+// any other, so a value below bf16's range is not taken for a zero) and
+// writes NaN, +inf or -inf where that sum is not finite; every other
+// output has no non-finite input and keeps s + t.  That scan is O(K) an
+// output, paid only by a block that met an inf or NaN.
 //
 // Design of gemm_kernel.  A block of two warpgroups (256 threads) owns a
 // 128 x 128 tile of C_b; block x runs over the tiles with the M tiles
-// fastest, so consecutive blocks read the same B tile from L2.  k goes 64
-// columns a stage (one 128-byte row of bf16, the 128-byte swizzle): the A
-// terms' 128 x 64 tiles and the B terms' 128 x 64 tiles of a stage arrive
+// fastest, so consecutive blocks read the same B tile from L2.  k goes 32
+// columns a stage (one 64-byte row of bf16, the 64-byte swizzle): the A
+// terms' 128 x 32 tiles and the B terms' 128 x 32 tiles of a stage arrive
 // by TMA (3-D maps over (Kp, rows, planes), zero past the ends) behind one
-// mbarrier, into a ring of stages (2 with five or six tiles a stage, 192
-// KB; 3 with four), issued by thread 0 once both warpgroups are done with
-// the stage.  Warpgroup w multiplies rows 64w .. 64w + 63: for each 16
-// columns of k, one wgmma m64n128k16 (bf16 x bf16, f32 accumulator, both
-// operands K-major in shared memory) per product, a1b1 into h and the rest
-// into t; at a chunk's end it waits for them and folds.  The output tile is
-// stored from the registers (a thread holds two rows and 32 column pairs).
+// mbarrier, into a ring of stages (3 with eight tiles a stage, 192 KB; 4
+// with fewer), issued by thread 0 once both warpgroups are done with the
+// stage.  Warpgroup w multiplies rows 64w .. 64w + 63: for each 16 columns
+// of k, one wgmma m64n128k16 (bf16 x bf16, f32 accumulator, both operands
+// K-major in shared memory) per product, g_a·g_b into h and the rest into
+// t; at a chunk's end (every two stages) it waits for them and folds.  The
+// output tile is stored from the registers (a thread holds two rows and 32
+// column pairs).
 //
 // Bound on an H100 SXM (989 TFLOP/s bf16 on the tensor cores; 3.35 TB/s).
 // The encode at full width (32 blocks of (2048 x 1024) @ (1024 x 32768),
-// 4.40 TFLOP of f32 products) is eight bf16 products: 35.2 TFLOP, 35.6 ms;
-// its bytes (M read and its three terms written by the split pass, 10.7 GB,
-// then the terms read and C written, 15.0 GB) take 7.7 ms.  So it is bound
+// 4.40 TFLOP of f32 products) is ten bf16 products: 44.0 TFLOP, 44.5 ms;
+// its bytes (M read and its four terms written by the split pass, 12.9 GB,
+// then the terms read and C written, 17.2 GB) take 9.0 ms.  So it is bound
 // by operations.  Against it the old design's f32 bound, 4.40 TFLOP at 67
 // TFLOP/s outside the tensor cores, is 65.6 ms.
 #include <cuda.h>   // CUtensorMap and its enums; the encode is looked up at run time
@@ -124,15 +134,12 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
       : "memory");
 }
 
-// A wgmma operand in shared memory under the 128-byte swizzle: start address,
-// leading byte offset, stride byte offset 1024 (8 rows of 128 bytes), in
-// 16-byte units.  K-major operands ignore the leading offset (pass 16); an
-// MN-major one (the flash kernel's V) takes the distance between its
-// 64-column atoms.
-__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo_bytes) {
-  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo_bytes >> 4) << 16) | (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (1ull << 62);
+// A K-major wgmma operand in shared memory under the 64-byte swizzle: start
+// address, leading byte offset (ignored for K-major; 16), stride byte
+// offset 512 (8 rows of 64 bytes), in 16-byte units; layout type 2.
+__device__ __forceinline__ uint64_t sw64_desc(const void* p) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(512 >> 4) << 32) | (2ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -185,97 +192,129 @@ EncodeTiled encode_tiled() {
 // ------------------------------------------------------------ the split pass
 
 constexpr uint16_t kNaN = 0x7FC0;         // the quiet NaN every split writes
-
-// x as up to three bf16 terms (bit patterns) that sum to x (see the note).
-__device__ __forceinline__ void split3(float x, uint16_t& t1, uint16_t& t2, uint16_t& t3) {
-  if (!isfinite(x)) {
-    t1 = isnan(x) ? kNaN : (x > 0.0f ? 0x7F80 : 0xFF80);
-    t2 = t3 = 0;
-    return;
-  }
-  __nv_bfloat16 h1 = __float2bfloat16_rn(x);
-  if (isinf(__bfloat162float(h1))) {      // past bf16's largest finite value: toward zero
-    h1 = __ushort_as_bfloat16(static_cast<uint16_t>(__float_as_uint(x) >> 16));
-  }
-  const float r = __fsub_rn(x, __bfloat162float(h1));
-  const __nv_bfloat16 h2 = __float2bfloat16_rn(r);
-  const float r2 = __fsub_rn(r, __bfloat162float(h2));
-  t1 = __bfloat16_as_ushort(h1);
-  t2 = __bfloat16_as_ushort(h2);
-  t3 = __bfloat16_as_ushort(__float2bfloat16_rn(r2));
-}
+constexpr int kChunk = 64;                // values along k that share one grid
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-// bf16 x (given as the f32 of the same value) as two bf16 terms of 4
-// significant bits: x1 its bits with the last 4 of the fraction cleared, x2
-// = x - x1, exact.  An inf or NaN is its own first term (its bits).
-__device__ __forceinline__ void split2(float x, uint16_t& t1, uint16_t& t2) {
-  const uint32_t bits = __float_as_uint(x) >> 16;
-  if (!isfinite(x)) {
-    t1 = static_cast<uint16_t>(bits);
-    t2 = 0;
-    return;
-  }
-  t1 = static_cast<uint16_t>(bits & 0xFFF0u);
-  const float x1 = __uint_as_float(static_cast<uint32_t>(t1) << 16);
-  t2 = __bfloat16_as_ushort(__float2bfloat16_rn(__fsub_rn(x, x1)));
+// The exponent field of x, at least 1 (zeros and subnormals count as 1),
+// and 0 for inf and NaN, so that a chunk's largest skips them.
+__device__ __forceinline__ int grid_exp(float x) {
+  const int be = static_cast<int>((__float_as_uint(x) >> 23) & 0xFF);
+  return be == 0xFF ? 0 : max(be, 1);
 }
 
-// The terms of 8 consecutive values, stored as 16 bytes a term at
-// dst + term·term_stride: three of an f32 value (NT = 3), two of a bf16
-// one (NT = 2).
+// The lead term of finite x: x cut toward zero to the grid 2^(E - 134) of
+// its chunk, whose largest exponent field is E.  The low E - e + 16 bits of
+// a value of exponent field e are cleared (at least 16, so the lead is a
+// bf16 number; past 23 only the sign stays).
+__device__ __forceinline__ float lead(float x, int E) {
+  const uint32_t u = __float_as_uint(x);
+  const int clear = E - max(static_cast<int>((u >> 23) & 0xFF), 1) + 16;
+  return __uint_as_float(clear >= 24 ? (u & 0x80000000u) : (u & (0xFFFFFFFFu << clear)));
+}
+
+// A lead of zero carries in its sign whether x is zero: +0 for x = ±0, -0
+// for a nonzero x below its chunk's grid, whose sign the rest's first term
+// carries (a signed zero where x is below bf16's least subnormal, 2^-133).
+// The epilogue of a block that met an inf reads it (value_class); a zero
+// term's sign changes no product's value.
+__device__ __forceinline__ float zero_lead(float g, float x) {
+  if ((__float_as_uint(g) & 0x7FFFFFFFu) != 0) return g;
+  return x != 0.0f ? __uint_as_float(0x80000000u) : 0.0f;
+}
+
+__device__ __forceinline__ uint16_t bf16_bits(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
+// x as NT bf16 terms (bit patterns) on its chunk's grid E (see the note):
+// the lead, then the rest's three terms (f32, NT = 4) or the rest itself
+// (bf16, NT = 2).  An inf or NaN is its own lead.
 template <int NT>
-__device__ __forceinline__ void store_terms(const float (&v)[8], uint16_t* dst,
-                                            size_t term_stride) {
-  uint16_t t[3][8];
+__device__ __forceinline__ void split_value(float x, int E, uint16_t (&t)[NT]) {
 #pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    if (NT == 2) {
-      split2(v[e], t[0][e], t[1][e]);
-    } else {
-      split3(v[e], t[0][e], t[1][e], t[2][e]);
-    }
+  for (int i = 1; i < NT; ++i) t[i] = 0;
+  if (!isfinite(x)) {
+    t[0] = NT == 2 ? static_cast<uint16_t>(__float_as_uint(x) >> 16)
+                   : (isnan(x) ? kNaN : (x > 0.0f ? 0x7F80 : 0xFF80));
+    return;
   }
+  const float g = zero_lead(lead(x, E), x);
+  t[0] = static_cast<uint16_t>(__float_as_uint(g) >> 16);
+  const float r = __fsub_rn(x, g);
+  t[1] = bf16_bits(r);
+  if constexpr (NT == 4) {
+    const float r2 = __fsub_rn(r, __uint_as_float(static_cast<uint32_t>(t[1]) << 16));
+    t[2] = bf16_bits(r2);
+    t[3] = bf16_bits(__fsub_rn(r2, __uint_as_float(static_cast<uint32_t>(t[2]) << 16)));
+  }
+}
+
+// The largest grid_exp over the 8 lanes of an aligned group of 8 (one
+// chunk of 64 values, 8 a lane); every lane of the warp takes part.
+__device__ __forceinline__ int chunk_exp(int e) {
+#pragma unroll
+  for (int m = 1; m < 8; m <<= 1) e = max(e, __shfl_xor_sync(0xFFFFFFFFu, e, m));
+  return e;
+}
+
+// The terms of 8 consecutive values of one chunk (grid E), stored as 16
+// bytes a term at dst + term·term_stride.
+template <int NT>
+__device__ __forceinline__ void store_terms(const float (&v)[8], int E, uint16_t* dst,
+                                            size_t term_stride) {
+  uint16_t t[8][NT];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) split_value<NT>(v[e], E, t[e]);
 #pragma unroll
   for (int term = 0; term < NT; ++term) {
     uint4 w;
-    w.x = t[term][0] | (static_cast<uint32_t>(t[term][1]) << 16);
-    w.y = t[term][2] | (static_cast<uint32_t>(t[term][3]) << 16);
-    w.z = t[term][4] | (static_cast<uint32_t>(t[term][5]) << 16);
-    w.w = t[term][6] | (static_cast<uint32_t>(t[term][7]) << 16);
+    w.x = t[0][term] | (static_cast<uint32_t>(t[1][term]) << 16);
+    w.y = t[2][term] | (static_cast<uint32_t>(t[3][term]) << 16);
+    w.z = t[4][term] | (static_cast<uint32_t>(t[5][term]) << 16);
+    w.w = t[6][term] | (static_cast<uint32_t>(t[7][term]) << 16);
     *reinterpret_cast<uint4*>(dst + term * term_stride) = w;
   }
 }
 
 // x (nb planes of R x C, row-major) -> dst (nb, NT, R, Cp): each thread
-// takes 8 consecutive columns of a row; columns C .. Cp - 1 get zeros.
+// takes 8 consecutive columns of a row, 8 neighbouring lanes one chunk of
+// 64; columns C .. Cp - 1 get zeros.  Whole warps run the loop (the
+// chunk's largest exponent is taken by shuffles).
 template <typename T, int NT>
 __global__ void __launch_bounds__(256)
 split_rows_kernel(const T* __restrict__ x, uint16_t* __restrict__ dst, long long rows, int R,
                   int C, int Cp) {
-  const int groups = Cp / 8;
-  const long long total = rows * groups;
-  for (long long gi = blockIdx.x * 256LL + threadIdx.x; gi < total;
-       gi += static_cast<long long>(gridDim.x) * 256) {
-    const long long row = gi / groups;
-    const int c0 = static_cast<int>(gi % groups) * 8;
-    const long long b = row / R, r = row % R;
+  const int chunks = (Cp + kChunk - 1) / kChunk;
+  const long long total = rows * chunks * 8;
+  const int lane = threadIdx.x % 32;
+  for (long long w0 = blockIdx.x * 256LL + (threadIdx.x - lane); w0 < total;
+       w0 += static_cast<long long>(gridDim.x) * 256) {
+    const long long gi = w0 + lane;
+    const long long row = gi / (chunks * 8);
+    const int c0 = static_cast<int>(gi % (chunks * 8)) * 8;
+    const bool live = gi < total && c0 < Cp;
     float v[8];
+    int e = 1;
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      v[e] = c0 + e < C ? to_f32(x[row * C + c0 + e]) : 0.0f;
+    for (int k = 0; k < 8; ++k) {
+      v[k] = live && c0 + k < C ? to_f32(x[row * C + c0 + k]) : 0.0f;
+      e = max(e, grid_exp(v[k]));
     }
-    store_terms<NT>(v, dst + (static_cast<size_t>(b * NT) * R + r) * Cp + c0,
-                    static_cast<size_t>(R) * Cp);
+    e = chunk_exp(e);
+    if (live) {
+      const long long b = row / R, r = row % R;
+      store_terms<NT>(v, e, dst + (static_cast<size_t>(b * NT) * R + r) * Cp + c0,
+                      static_cast<size_t>(R) * Cp);
+    }
   }
 }
 
 // x (nb planes of R x C, row-major) -> dst (nb, NT, C, Rp), transposed: a
-// block moves a 64 x 32 tile (64 rows of x, 32 columns) through shared
-// memory, reading rows and writing columns 16 bytes at a time; rows R ..
-// Rp - 1 get zeros.
+// block moves a 64 x 32 tile (64 rows of x, one chunk along k, 32 columns)
+// through shared memory, reading rows and writing columns 16 bytes at a
+// time; rows R .. Rp - 1 get zeros.
 template <typename T, int NT>
 __global__ void __launch_bounds__(256)
 split_cols_kernel(const T* __restrict__ x, uint16_t* __restrict__ dst, int R, int C, int Rp) {
@@ -292,11 +331,16 @@ split_cols_kernel(const T* __restrict__ x, uint16_t* __restrict__ dst, int R, in
   __syncthreads();
   const int cc = tid / 8, g = tid % 8;
   const int c = c0 + cc, r = r0 + 8 * g;
-  if (c < C && r < Rp) {
-    float v[8];
+  float v[8];
+  int e = 1;
 #pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = tile[8 * g + e][cc];
-    store_terms<NT>(v, dst + (plane * NT * C + c) * Rp + r, static_cast<size_t>(C) * Rp);
+  for (int k = 0; k < 8; ++k) {
+    v[k] = tile[8 * g + k][cc];
+    e = max(e, grid_exp(v[k]));
+  }
+  e = chunk_exp(e);
+  if (c < C && r < Rp) {
+    store_terms<NT>(v, e, dst + (plane * NT * C + c) * Rp + r, static_cast<size_t>(C) * Rp);
   }
 }
 
@@ -314,8 +358,8 @@ int launch_split(const void* x, void* dst, int nb, int R, int C, int transpose,
   } else {
     const int Cp = (C + 7) / 8 * 8;
     const long long rows = static_cast<long long>(nb) * R;
-    const long long groups = rows * (Cp / 8);
-    const long long blocks = groups / 256 + 1;
+    const long long lanes = rows * ((Cp + kChunk - 1) / kChunk) * 8;
+    const long long blocks = lanes / 256 + 1;
     const unsigned grid = static_cast<unsigned>(blocks < 132LL * 64 ? blocks : 132LL * 64);
     split_rows_kernel<T, NT><<<grid, 256, 0, stream>>>(src, out, rows, R, C, Cp);
   }
@@ -325,20 +369,20 @@ int launch_split(const void* x, void* dst, int nb, int R, int C, int transpose,
 // -------------------------------------------------------- the tensor products
 
 constexpr int kThreads = 256;             // two warpgroups
-constexpr int kBM = 128, kBN = 128, kBK = 64;
-constexpr int kTile = 128 * 128;          // bytes of one term's tile: 128 rows x 64 bf16
+constexpr int kBM = 128, kBN = 128, kBK = 32;
+constexpr int kTile = 128 * kBK * 2;      // bytes of one term's tile: 128 rows x 32 bf16
 
-__host__ __device__ constexpr int stages_for(int terms) { return terms >= 5 ? 2 : 3; }
+__host__ __device__ constexpr int stages_for(int terms) { return terms >= 7 ? 3 : 4; }
 
 constexpr size_t gemm_smem_bytes(int terms) {
   return 1024 + static_cast<size_t>(stages_for(terms)) * terms * kTile +
          stages_for(terms) * sizeof(uint64_t);
 }
-static_assert(gemm_smem_bytes(6) <= kMaxSmem && gemm_smem_bytes(5) <= kMaxSmem &&
+static_assert(gemm_smem_bytes(8) <= kMaxSmem && gemm_smem_bytes(6) <= kMaxSmem &&
                   gemm_smem_bytes(4) <= kMaxSmem,
               "the ring fits in shared memory");
 
-// One box of 64 k x 128 rows of one plane into shared memory, reported to `bar`.
+// One box of 32 k x 128 rows of one plane into shared memory, reported to `bar`.
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
                                          int k0, int row0, int plane) {
   asm volatile(
@@ -379,10 +423,10 @@ __device__ __forceinline__ float two_sum(float a, float b, float& e) {
   return x;
 }
 
-// A chunk's end: the sum s takes the chunk's large term h and the small
+// A chunk's end: the sum s takes the chunk's lead product h and the small
 // accumulator t, each by TwoSum, and t restarts from the two errors.  A
-// non-finite t only comes with a non-finite h (see the note), and stays
-// out of s, which then holds h's IEEE result.
+// non-finite t (an f32 overflow of the sum) stays out of s, which then
+// holds h's IEEE result.
 __device__ __forceinline__ void fold_into(float& s, float& t, float h) {
   float e1, e2;
   const float x = two_sum(s, h, e1);
@@ -392,23 +436,75 @@ __device__ __forceinline__ void fold_into(float& s, float& t, float h) {
   t = finite ? __fadd_rn(e1, e2) : t;
 }
 
-// The term products a_i·b_j run: those with i + j <= kOrder (0-based).
-constexpr int kOrder = 3;
+// Each term's level below its chunk's scale (see the note): the products
+// run are those whose levels sum to at most kMaxLevel (ref.product_pairs).
+__host__ __device__ constexpr int level(int terms, int i) {
+  return terms == 2 ? 7 * i : (i == 0 ? 0 : 8 * i - 1);
+}
+constexpr int kMaxLevel = 23;
 // Steps of 16 columns of k a chunk sums on the tensor cores before it is
-// folded: one stage of the ring.  At 8 steps (40, 200, 1) strays past the
-// 2x gate in 9 of 40 seeds (PERF.md); at 1 or 2 the kernel is slower.
+// folded: one chunk of the split's grid, two stages of the ring.
 constexpr int kFold = 4;
 
-// NA, NB: terms of A and B (3 of an f32 operand, 2 of a bf16 one).  The A
+// 1 if any of the 8 bf16 values in w is an inf or NaN.
+__device__ __forceinline__ uint32_t nonfinite8(uint4 w) {
+  const uint32_t xs[4] = {w.x, w.y, w.z, w.w};
+  uint32_t bad = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    bad |= static_cast<uint32_t>((xs[i] & 0x7F80u) == 0x7F80u) |
+           static_cast<uint32_t>((xs[i] & 0x7F800000u) == 0x7F800000u);
+  }
+  return bad;
+}
+
+// The class of a value from its lead g and first remainder r1 (bf16 bits):
+// 0 zero, 1 finite > 0, 2 finite < 0, 3 +inf, 4 -inf, 5 NaN.  A lead of +0
+// is a zero value; -0 a nonzero one of r1's sign (zero_lead), however far
+// below bf16's range it lies.
+__device__ __forceinline__ int value_class(uint16_t g, uint16_t r1) {
+  if ((g & 0x7F80) == 0x7F80) return (g & 0x7F) ? 5 : ((g & 0x8000) ? 4 : 3);
+  if (g == 0) return 0;
+  const uint16_t s = (g & 0x7FFF) ? g : r1;
+  return (s & 0x8000) ? 2 : 1;
+}
+
+// Where the IEEE sum over k of a_k·b_k is not finite: NaN, +inf or -inf as
+// torch.matmul's sum meets them (a NaN, inf·0, or infs of both signs give
+// NaN); 0 where it is finite.  a and b: the lead plane of a row of A (of a
+// column of B), the first remainder's plane `rest` elements further on.
+// Its cost: in a block that met an inf or NaN, each thread scans all Kp
+// values of a row and a column from device memory for each of its 64
+// outputs, O(K) an output (serial, off the tensor cores); blocks that met
+// none skip it.
+__device__ __noinline__ float ieee_nonfinite(const uint16_t* a, size_t a_rest, const uint16_t* b,
+                                size_t b_rest, int Kp) {
+  int nan = 0, pos = 0, neg = 0;
+  for (int k = 0; k < Kp; ++k) {
+    const int ka = value_class(a[k], a[a_rest + k]), kb = value_class(b[k], b[b_rest + k]);
+    if (ka == 5 || kb == 5 || ((ka >= 3 || kb >= 3) && (ka == 0 || kb == 0))) {
+      nan = 1;
+    } else if (ka >= 3 || kb >= 3) {
+      const bool minus = (ka == 2 || ka == 4) != (kb == 2 || kb == 4);
+      (minus ? neg : pos) = 1;
+    }
+  }
+  if (nan || (pos && neg)) return __int_as_float(0x7FC00000);
+  return pos ? __int_as_float(0x7F800000) : (neg ? __int_as_float(0xFF800000) : 0.0f);
+}
+
+// NA, NB: terms of A and B (4 of an f32 operand, 2 of a bf16 one).  The A
 // terms' map covers (Kp, M, planes), the B terms' (Kp, N, planes), plane =
-// batch entry · terms + term (entry 0 for a shared operand).  Thread
-// (warpgroup w, warp v, lane l) holds rows 64w + 16v + l/4 and 8 more, and
-// for each 8 columns j, columns 8j + 2(l % 4) and one more: element 4j +
-// 2·half + e of a 64-float fragment.
+// batch entry · terms + term (entry 0 for a shared operand); ta and tb are
+// the same buffers, read in the epilogue of a block that met an inf or NaN.
+// Thread (warpgroup w, warp v, lane l) holds rows 64w + 16v + l/4 and 8
+// more, and for each 8 columns j, columns 8j + 2(l % 4) and one more:
+// element 4j + 2·half + e of a 64-float fragment.
 template <int NA, int NB>
 __global__ void __launch_bounds__(kThreads, 1)
 gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
-            float* __restrict__ C, int M, int N, int n_k, int m_tiles, int a_batched,
+            const uint16_t* __restrict__ ta, const uint16_t* __restrict__ tb,
+            float* __restrict__ C, int M, int N, int Kp, int m_tiles, int a_batched,
             int b_batched) {
   constexpr int kTerms = NA + NB;
   constexpr int kStages = stages_for(kTerms);
@@ -423,6 +519,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
   const int n0 = static_cast<int>(blockIdx.x / m_tiles) * kBN;
   const int b = blockIdx.z;
   const int pa = a_batched ? b * NA : 0, pb = b_batched ? b * NB : 0;
+  const int n_k = (Kp + kBK - 1) / kBK;
   const CUtensorMap* tma = &map_a;
   const CUtensorMap* tmb = &map_b;
 
@@ -449,32 +546,40 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
   float sum[64], small[64], chunk[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) sum[i] = small[i] = chunk[i] = 0.0f;
-  const int steps = 4 * n_k;              // 16 columns of k a step
+  const int steps = 2 * n_k;              // 16 columns of k a step
+  uint32_t bad = 0;                       // an inf or NaN in this thread's share of the leads
 
   for (int it = 0; it < n_k; ++it) {
     const int s = it % kStages;
     mbar_wait(&full[s], static_cast<unsigned>((it / kStages) & 1));
-    const unsigned char* ta = tiles + s * kStage + wg * 64 * 128;   // this warpgroup's rows
-    const unsigned char* tb = tiles + s * kStage + NA * kTile;
+    const unsigned char* ta_s = tiles + s * kStage + wg * 64 * (2 * kBK);  // this warpgroup's rows
+    const unsigned char* tb_s = tiles + s * kStage + NA * kTile;
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const int g = 4 * it + kk;
+    for (int kk = 0; kk < 2; ++kk) {
+      const int g = 2 * it + kk;
       fence_regs(chunk);
       fence_regs(small);
       wgmma_fence();
-      wgmma_128(chunk, sw128_desc(ta + 32 * kk, 16), sw128_desc(tb + 32 * kk, 16),
-                g % kFold != 0);
+      wgmma_128(chunk, sw64_desc(ta_s + 32 * kk), sw64_desc(tb_s + 32 * kk), g % kFold != 0);
 #pragma unroll
       for (int i = 0; i < NA; ++i) {
 #pragma unroll
         for (int j = 0; j < NB; ++j) {
-          if ((i > 0 || j > 0) && i + j <= kOrder) {
-            wgmma_128(small, sw128_desc(ta + i * kTile + 32 * kk, 16),
-                      sw128_desc(tb + j * kTile + 32 * kk, 16), 1);
+          if ((i > 0 || j > 0) && level(NA, i) + level(NB, j) <= kMaxLevel) {
+            wgmma_128(small, sw64_desc(ta_s + i * kTile + 32 * kk),
+                      sw64_desc(tb_s + j * kTile + 32 * kk), 1);
           }
         }
       }
       wgmma_commit();
+      if (kk == 0) {                      // while the products run: the leads' share
+        const unsigned char* st = tiles + s * kStage;
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          bad |= nonfinite8(*reinterpret_cast<const uint4*>(st + 16 * tid + 4096 * q));
+          bad |= nonfinite8(*reinterpret_cast<const uint4*>(st + NA * kTile + 16 * tid + 4096 * q));
+        }
+      }
       if ((g + 1) % kFold == 0 || g + 1 == steps) {
         wgmma_wait_all();
         fence_regs(chunk);
@@ -489,6 +594,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
     __syncthreads();
     if (tid == 0 && it + kStages < n_k) load(s, it + kStages);
   }
+  const bool special = __syncthreads_or(static_cast<int>(bad)) != 0;
 
   float* c = C + static_cast<size_t>(b) * M * N;
   const bool pairs = N % 2 == 0;
@@ -505,6 +611,13 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
       for (int e = 0; e < 2; ++e) {
         const int i = 4 * j + 2 * half + e;
         v[e] = isfinite(sum[i]) ? __fadd_rn(sum[i], small[i]) : sum[i];
+        if (special && col + e < N) {
+          const float nf = ieee_nonfinite(ta + (static_cast<size_t>(pa) * M + row) * Kp,
+                                          static_cast<size_t>(M) * Kp,
+                                          tb + (static_cast<size_t>(pb) * N + col + e) * Kp,
+                                          static_cast<size_t>(N) * Kp, Kp);
+          v[e] = isfinite(nf) ? v[e] : nf;
+        }
       }
       if (pairs && col + 1 < N) {
         *reinterpret_cast<float2*>(crow + col) = make_float2(v[0], v[1]);
@@ -516,8 +629,8 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
   }
 }
 
-// The 3-D map of a term buffer (planes, rows, Kp) of bf16: boxes of 64 k x
-// 128 rows of one plane, 128-byte swizzled, zero past the ends.
+// The 3-D map of a term buffer (planes, rows, Kp) of bf16: boxes of 32 k x
+// 128 rows of one plane, 64-byte swizzled, zero past the ends.
 bool term_map(CUtensorMap* map, const void* x, int Kp, int rows, long long planes) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
@@ -528,7 +641,7 @@ bool term_map(CUtensorMap* map, const void* x, int Kp, int rows, long long plane
   const cuuint32_t box[3] = {kBK, 128, 1};
   const cuuint32_t step[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims, strides,
-                box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -549,11 +662,10 @@ int launch_gemm(const void* ta, int a_batched, const void* tb, int b_batched, vo
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long m_tiles = (M + kBM - 1) / kBM, n_tiles = (N + kBN - 1) / kBN;
   if (m_tiles * n_tiles > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  const int n_k = (Kp + kBK - 1) / kBK;
   gemm_kernel<NA, NB>
       <<<dim3(static_cast<unsigned>(m_tiles * n_tiles), 1, batch), kThreads, smem, stream>>>(
-          map_a, map_b, static_cast<float*>(C), M, N, n_k, static_cast<int>(m_tiles),
-          a_batched, b_batched);
+          map_a, map_b, static_cast<const uint16_t*>(ta), static_cast<const uint16_t*>(tb),
+          static_cast<float*>(C), M, N, Kp, static_cast<int>(m_tiles), a_batched, b_batched);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -562,7 +674,7 @@ int launch_gemm(const void* ta, int a_batched, const void* tb, int b_batched, vo
 extern "C" {
 
 // The split pass on `stream`: x (nb planes of R x C, row-major), dtype 0
-// f32 (three terms) or 1 bf16 (two), into dst: (nb, terms, R, pad8(C))
+// f32 (four terms) or 1 bf16 (two), into dst: (nb, terms, R, pad8(C))
 // bf16, or with `transpose` (nb, terms, C, pad8(R)).  Returns a CUDA error
 // code (0 = launched).
 int split_terms_launch(const void* x, int dtype, void* dst, int nb, int R, int C,
@@ -574,7 +686,7 @@ int split_terms_launch(const void* x, int dtype, void* dst, int nb, int R, int C
     return static_cast<int>(cudaErrorMisalignedAddress);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? launch_split<float, 3>(x, dst, nb, R, C, transpose, s)
+  return dtype == 0 ? launch_split<float, 4>(x, dst, nb, R, C, transpose, s)
                     : launch_split<__nv_bfloat16, 2>(x, dst, nb, R, C, transpose, s);
 }
 
@@ -587,21 +699,21 @@ int block_matmul_launch(const void* ta, int na, int a_batched, const void* tb, i
                         int b_batched, void* C, int M, int N, int Kp, int batch,
                         void* stream) {
   if (M < 1 || N < 1 || Kp < 8 || Kp % 8 != 0 || batch < 1 || batch > 65535 ||
-      (na != 2 && na != 3) || (nb != 2 && nb != 3)) {
+      (na != 2 && na != 4) || (nb != 2 && nb != 4)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if ((reinterpret_cast<uintptr_t>(ta) | reinterpret_cast<uintptr_t>(tb)) % 16 != 0) {
     return static_cast<int>(cudaErrorMisalignedAddress);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (na == 3 && nb == 3) {
-    return launch_gemm<3, 3>(ta, a_batched, tb, b_batched, C, M, N, Kp, batch, s);
+  if (na == 4 && nb == 4) {
+    return launch_gemm<4, 4>(ta, a_batched, tb, b_batched, C, M, N, Kp, batch, s);
   }
-  if (na == 3) {
-    return launch_gemm<3, 2>(ta, a_batched, tb, b_batched, C, M, N, Kp, batch, s);
+  if (na == 4) {
+    return launch_gemm<4, 2>(ta, a_batched, tb, b_batched, C, M, N, Kp, batch, s);
   }
-  if (nb == 3) {
-    return launch_gemm<2, 3>(ta, a_batched, tb, b_batched, C, M, N, Kp, batch, s);
+  if (nb == 4) {
+    return launch_gemm<2, 4>(ta, a_batched, tb, b_batched, C, M, N, Kp, batch, s);
   }
   return launch_gemm<2, 2>(ta, a_batched, tb, b_batched, C, M, N, Kp, batch, s);
 }

@@ -11,10 +11,10 @@ the moment encode through :func:`encode_gm`.
 
 For tensors on a CUDA device :func:`block_matmul` launches two kernels or
 raises: the split pass (:func:`split_terms`, once for A and once for B),
-which writes each f32 value as three bf16 terms that sum to it (a bf16
-value as two), then the products of the terms on the tensor cores
-(:func:`products_of_terms`, ``gemm_kernel``), folded into f32 sums
-outside them.  For tensors on the CPU it runs the plain version
+which writes each f32 value as four bf16 terms that sum to it (a bf16
+value as two), the first on a grid shared by 64 values along k, then the
+products of the terms on the tensor cores (:func:`products_of_terms`,
+``gemm_kernel``), folded into f32 sums outside them.  For tensors on the CPU it runs the plain version
 (:func:`.ref.block_matmul_ref`, ``torch.matmul``), which also takes
 float64 (the port's float64 reference runs); the kernels take f32 and
 bf16 only, and a float64 CUDA tensor is refused.  There is no other path:
@@ -83,10 +83,11 @@ def _check(A: torch.Tensor, B: torch.Tensor) -> None:
 def split_terms(x: torch.Tensor, transpose: bool = False) -> torch.Tensor:
     """The split pass: ``x`` ``(R, C)`` or ``(nb, R, C)``, f32 or bf16, as
     ``(nb, terms, R, Cp)`` bf16, or with ``transpose`` ``(nb, terms, C,
-    Rp)``, the inner axis padded with zeros to a multiple of 8.  An f32
-    value has three terms that sum to it (:func:`.ref.split3`), a bf16
-    value two of 4 significant bits (:func:`.ref.split2`).  On the card one
-    launch of the split kernel; on the CPU the plain version
+    Rp)``, the inner axis (k) padded with zeros to a multiple of 8.  In
+    chunks of 64 along k, an f32 value has four terms that sum to it, a
+    lead on the chunk's grid and three of the rest (:func:`.ref.split4`),
+    a bf16 value two (:func:`.ref.split2`).  On the card one launch of the
+    split kernel; on the CPU the plain version
     (:func:`.ref.split_terms_ref`), bit for bit the same."""
     if x.dtype not in _CODES or x.ndim not in (2, 3) or min(x.shape) < 1:
         raise ValueError(f"split_terms takes a non-empty 2-D or 3-D float32 or bfloat16 "
@@ -98,7 +99,7 @@ def split_terms(x: torch.Tensor, transpose: bool = False) -> torch.Tensor:
     x = x.contiguous()
     nb, R, C = x.shape if x.ndim == 3 else (1, *x.shape)
     rows, inner = (C, R) if transpose else (R, C)
-    out = torch.empty((nb, 3 if x.dtype == torch.float32 else 2, rows, -(-inner // 8) * 8),
+    out = torch.empty((nb, 4 if x.dtype == torch.float32 else 2, rows, -(-inner // 8) * 8),
                       dtype=torch.bfloat16, device=x.device)
     lib = _lib()
     with torch.cuda.device(x.device):
@@ -118,17 +119,18 @@ def products_of_terms(ta: torch.Tensor, tb: torch.Tensor) -> torch.Tensor:
     Kp)`` and of B, transposed, ``tb`` ``(nbB, terms, N, Kp)`` (the split
     pass's outputs; a batch of 1 is shared by the other's batch), the f32
     products ``(batch, M, N)``.  Each entry is the sum of the terms'
-    products with ``i + j <= ref.PRODUCT_ORDER`` (all but a3·b3 of two f32
-    operands): the largest, a1·b1, and the rest summed on the tensor cores
-    in two accumulators over chunks of 64 columns, each chunk added to the
-    entry's sum in ascending order by error-free TwoSums whose errors start
-    the next chunk's small accumulator; the result rounded once.  On the
+    products in :func:`.ref.product_pairs` (ten of two f32 operands): the
+    leads' product, exact within a chunk of 64 columns, and the rest summed
+    on the tensor cores in two accumulators over those chunks, each chunk
+    added to the entry's sum in ascending order by error-free TwoSums whose
+    errors start the next chunk's small accumulator; the result rounded
+    once, and NaN or inf where ``torch.matmul``'s IEEE sum has them.  On the
     card one launch, counted on
     ``block_matmul.launches``; on the CPU the plain version
     (:func:`.ref.terms_product_ref`, rounded once to f32)."""
     if (ta.dtype != torch.bfloat16 or tb.dtype != torch.bfloat16 or ta.ndim != 4
             or tb.ndim != 4 or ta.device != tb.device or ta.shape[-1] != tb.shape[-1]
-            or ta.shape[-1] % 8 != 0 or ta.shape[1] not in (2, 3) or tb.shape[1] not in (2, 3)
+            or ta.shape[-1] % 8 != 0 or ta.shape[1] not in (2, 4) or tb.shape[1] not in (2, 4)
             or (ta.shape[0] != tb.shape[0] and 1 not in (ta.shape[0], tb.shape[0]))):
         raise ValueError(f"products_of_terms takes the split pass's bf16 terms; got "
                          f"{ta.dtype} {tuple(ta.shape)} and {tb.dtype} {tuple(tb.shape)}")

@@ -38,6 +38,7 @@ import math
 
 import torch
 
+from repro_torch.device import sm_count
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ref
 
@@ -201,12 +202,6 @@ def split_count(T: int, B: int, KV: int, sms: int) -> int:
     tiles = -(-T // ref.TILE_KEYS["decode"])
     want = -(-DECODE_BLOCKS_PER_SM * sms // (B * KV))
     return max(1, min(want, tiles // DECODE_MIN_SPLIT_TILES))
-
-
-@functools.cache
-def sm_count(device: torch.device) -> int:
-    """The SM count of a CUDA device."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 # Per (device, stream): the decode kernel's workspace, each split's (m, l,

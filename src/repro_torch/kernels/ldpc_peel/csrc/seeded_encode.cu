@@ -86,7 +86,8 @@ extern "C" {
 // Launches the encode on `stream`: out (n_out, V) f32 holds codeword rows
 // [row0, row0 + n_out) of y (cols, V) f32, for the seeded parity block of
 // `rows` x `cols` (row weight r, `layers` layers; `layer` a device array
-// of the layers' strides, then their offsets).  Returns a CUDA error code
+// of the layers' strides, offsets, inverse strides and strides mod cols,
+// as seeded_rows.cuh reads it).  Returns a CUDA error code
 // (0 = launched).
 int seeded_encode_launch(int rows, int cols, int r, int layers,
                          unsigned int wseed, const int* layer, const float* y,
@@ -98,7 +99,8 @@ int seeded_encode_launch(int rows, int cols, int r, int layers,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int w = network_width(r);
-  auto* go = w == 16   ? &launch<16>
+  auto* go = w == 8    ? &launch<8>
+             : w == 16 ? &launch<16>
              : w == 32 ? &launch<32>
              : w == 64 ? &launch<64>
                        : &launch<0>;

@@ -43,11 +43,17 @@ wrapper                                  contract (TPU kernel it replaces)
                                          ``row0`` (``encode_seeded_fused``)
 ======================================== ====================================
 
-The four decodes launch ``csrc/seeded_decode.cu``, which regenerates each
-check row from the seed and follows exactly the trajectory, and computes
-exactly the values, of ``csrc/peel_decode.cu`` over the same code's table;
-its per-block state moves from shared to device memory past N ~ 46,000, so
-it has no limit on N.  The encode launches ``csrc/seeded_encode.cu``.
+The four decodes launch ``csrc/seeded_decode.cu``, which keeps a count of
+erased neighbours per check row, reaches a coordinate's rows through the
+layers' inverse permutations, regenerates a row from the seed only when
+it acts, and follows exactly the trajectory, and computes exactly the
+values, of ``csrc/peel_decode.cu`` over the same code's table.  A pattern
+is spread over a thread-block cluster of up to 8 blocks where that fits
+(``SEEDED_CLUSTERS``), else one block whose state (two bits a coordinate and a count
+a row) lives in shared memory while it fits
+(the (4, 8) code up to N ~ 370,000) and in device memory past that, so it
+has no limit on N (:func:`seeded_layout`).  The encode launches
+``csrc/seeded_encode.cu``.
 
 The schedule REPLAY has one wrapper, :func:`peel_decode_replay_cuda`
 (``decode_replay``, and the JAX package's replay executors): B slots, each
@@ -64,6 +70,7 @@ else), so a run can show that it went through the kernel.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import NamedTuple
@@ -71,6 +78,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.device import sm_count
 from repro_torch.kernels import build
 from repro_torch.kernels.ldpc_peel import ref
 
@@ -79,6 +87,7 @@ __all__ = ["CodeTables", "peel_decode_cuda", "peel_decode_batch_cuda",
            "peel_decode_seeded_cuda", "peel_decode_batch_seeded_cuda",
            "peel_decode_adaptive_seeded_cuda",
            "peel_decode_batch_adaptive_seeded_cuda", "encode_seeded_fused_cuda",
+           "forced_cluster", "seeded_layout", "seeded_cluster_fits",
            "ReplayPack", "check_replay_host", "peel_decode_replay_cuda", "MAX_SMEM_BYTES",
            "check_pass_cuda", "peel_round_cuda"]
 
@@ -301,8 +310,13 @@ def peel_decode_batch_adaptive_cuda(tables: CodeTables, values: torch.Tensor,
 @functools.lru_cache(maxsize=64)
 def _layer_consts(st, dev: torch.device) -> torch.Tensor:
     """The structure's per-layer constants on ``dev``, uploaded once per
-    structure: ``layers`` strides, then ``layers`` offsets, int32."""
-    return torch.tensor([*st.strides, *st.offsets], dtype=torch.int32, device=dev)
+    structure, int32: the ``layers`` strides a_t, the offsets b_t, the
+    inverse strides a_t⁻¹ mod cols (the layers' inverse permutations) and
+    the strides mod cols (a row's step from one slot's column to the
+    next)."""
+    inv = [pow(a, -1, st.cols) for a in st.strides]
+    return torch.tensor([*st.strides, *st.offsets, *inv, *(a % st.cols for a in st.strides)],
+                        dtype=torch.int32, device=dev)
 
 
 def _spec_args(st, dev: torch.device) -> tuple:
@@ -312,11 +326,15 @@ def _spec_args(st, dev: torch.device) -> tuple:
 
 
 def _check_spec(st) -> None:
-    """Any row weight and any number of whole layers: the kernels sort a
-    row in registers up to row weight 64 and by selection past it, and read
-    the layer constants from device memory."""
-    if st.row_weight < 1:
-        raise ValueError(f"row weight must be >= 1; got {st.row_weight}")
+    """Any row weight up to 65535 and any number of whole layers: the
+    kernels sort a row in registers up to row weight 64 and by selection
+    past it, and read the layer constants from device memory.  A row's
+    first column ``a_t·x + b_t`` (x < cols) is reduced in 32 bits, as
+    ``seeded_structure`` bounds it."""
+    if not 1 <= st.row_weight <= 65535:
+        raise ValueError(f"row weight must be in [1, 65535]; got {st.row_weight}")
+    if max(st.strides) * (st.cols - 1) + max(st.offsets) >= 2 ** 32:
+        raise ValueError("layer strides too large for 32-bit columns")
     if st.layers < 1 or st.rows % st.layers != 0 or \
             len(st.strides) != st.layers or len(st.offsets) != st.layers:
         raise ValueError(f"{st.layers} layers do not split {st.rows} rows with "
@@ -328,9 +346,13 @@ def _decode_lib() -> ctypes.CDLL:
     lib = _load("seeded_decode")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.seeded_decode_launch.argtypes = [i32, i32, i32, i32, ctypes.c_uint, ptr,
-                                         ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-                                         ptr, i32, i32, i32, i32, i32, ptr]
+                                         ptr, ptr, ptr, ptr, ptr, ptr,
+                                         ptr, i32, i32, i32, i32, i32, i32, ptr]
     lib.seeded_decode_launch.restype = ctypes.c_int
+    lib.seeded_decode_smem_bytes.argtypes = [i32, i32, i32, i32, i32]
+    lib.seeded_decode_smem_bytes.restype = ctypes.c_size_t
+    lib.seeded_decode_state_bytes.argtypes = [i32, i32, i32]
+    lib.seeded_decode_state_bytes.restype = ctypes.c_size_t
     return lib
 
 
@@ -345,6 +367,56 @@ def _encode_lib() -> ctypes.CDLL:
     return lib
 
 
+# The cluster sizes the seeded decode takes, largest first (seeded_layout):
+# on the card the fastest layout of 1, 2, 4 and 8 blocks a pattern was the
+# largest cluster whose patterns are all resident at once (8 at B = 1 and
+# 8, 2 at B = 64; PERF.md).
+SEEDED_CLUSTERS = (8, 4, 2)
+_forced_cluster: list[int | None] = [None]
+
+
+@contextlib.contextmanager
+def forced_cluster(C: int):
+    """Within the block, every seeded decode launch spreads a pattern over
+    ``C`` blocks (1: one block, its state placed as :func:`seeded_layout`
+    would place it), whatever the shape: the hook by which tests and
+    ``chip_smoke.py`` hold each layout against the plain versions and time
+    them."""
+    _forced_cluster[0] = int(C)
+    try:
+        yield
+    finally:
+        _forced_cluster[0] = None
+
+
+def seeded_cluster_fits(st, C: int) -> bool:
+    """Whether a cluster of ``C`` blocks can hold a pattern of ``st``: any
+    ``C`` of 2 to 8 while the row weight is at most 255 and a block's share
+    (the erased bitmap, two resolved bitmaps, its rows' counts and its
+    warps' lists) fits its shared memory; one block always can."""
+    return C == 1 or (2 <= C <= 8 and st.row_weight <= 255 and _decode_lib(
+    ).seeded_decode_smem_bytes(st.cols, st.rows, st.row_weight, C, 1) <= MAX_SMEM_BYTES)
+
+
+def seeded_layout(st, B: int, V: int, device: torch.device) -> tuple[int, bool]:
+    """The dispatch by shape of the seeded decode on ``device``: ``(C,
+    in_shared)``, the blocks it spreads a pattern over and whether their
+    state lives in shared memory.  The largest cluster of
+    ``SEEDED_CLUSTERS`` (each block holding the erased bitmap and the
+    counts of its share of the rows in shared memory) that
+    :func:`seeded_cluster_fits` and whose patterns can all be resident at
+    once (``B·ceil(V / 4)·C`` blocks, at most the device's SM count);
+    else one block a pattern, its state (two bits a coordinate and a count
+    a row) in shared memory while it fits and in device memory past that.
+    A cluster the card refuses to launch raises: there is no fallback."""
+    C = _forced_cluster[0]
+    if C is None:
+        C = next((c for c in SEEDED_CLUSTERS if seeded_cluster_fits(st, c)
+                  and B * -(-V // _COLS_PER_BLOCK) * c <= sm_count(device)), 1)
+    return C, C > 1 or _decode_lib().seeded_decode_smem_bytes(
+        st.cols, st.rows, st.row_weight, 1, 1) <= MAX_SMEM_BYTES
+
+
 def _check_seeded(st, values, erased, iters, *, batched, budgets=None) -> None:
     _check_spec(st)
     _check_decode(st.cols, values, erased, iters, batched=batched,
@@ -354,9 +426,9 @@ def _check_seeded(st, values, erased, iters, *, batched, budgets=None) -> None:
 def _launch_seeded(st, values: torch.Tensor, erased: torch.Tensor, iters: int,
                    *, adaptive: bool, budgets: torch.Tensor | None = None):
     """Launch the seeded decode on ``values (B, N, V)`` / ``erased (B, N)``;
-    returns ``(values, erased, rounds)`` as :func:`_launch` does.  Past the
-    shared memory a block may hold, each block's state goes to a
-    device-memory scratch."""
+    returns ``(values, erased, rounds)`` as :func:`_launch` does.  The
+    blocks a pattern is spread over, and where a block's state lives, are
+    :func:`seeded_layout`'s dispatch by shape."""
     if values.device.type != "cuda":
         raise ValueError(f"no decode for device {values.device}")
     lib = _decode_lib()
@@ -365,16 +437,18 @@ def _launch_seeded(st, values: torch.Tensor, erased: torch.Tensor, iters: int,
     out_v = torch.empty_like(values)
     out_e = torch.empty_like(erased)
     rounds = torch.empty(B, dtype=torch.int32, device=dev) if adaptive else None
-    scratch = torch.empty((B, st.rows, V), dtype=torch.float32, device=dev)
-    state = _state(B, N, V, dev)
+    C, in_shared = seeded_layout(st, B, V, dev)
+    state = None if in_shared else torch.empty(
+        -(-V // _COLS_PER_BLOCK) * B * lib.seeded_decode_state_bytes(N, st.rows, st.row_weight),
+        dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.seeded_decode_launch(
             *_spec_args(st, dev), values.data_ptr(), erased.data_ptr(),
             None if budgets is None else budgets.data_ptr(), out_v.data_ptr(),
             out_e.data_ptr(), None if rounds is None else rounds.data_ptr(),
-            scratch.data_ptr(), None if state is None else state.data_ptr(),
-            B, N, V, iters, int(adaptive), stream)
+            None if state is None else state.data_ptr(), B, N, V, iters, int(adaptive), C,
+            stream)
     _raise_on(rc, lib, "seeded_decode")
     return out_v, out_e, rounds
 

@@ -62,7 +62,8 @@ import torch
 __all__ = ["dense_h", "lo_round", "adaptive_loop", "decode_fused_ref",
            "decode_fused_batch_ref", "decode_fused_adaptive_ref",
            "decode_fused_batch_adaptive_ref", "seeded_rows", "seeded_table",
-           "table_round", "decode_seeded_ref", "decode_seeded_batch_ref",
+           "table_round", "seeded_col_rows", "seeded_counts", "decode_seeded_ref",
+           "decode_seeded_batch_ref",
            "decode_seeded_adaptive_ref", "decode_seeded_batch_adaptive_ref",
            "decode_table_ref", "decode_table_batch_ref", "decode_table_adaptive_ref",
            "decode_table_batch_adaptive_ref", "fixed_loop", "gather_encode",
@@ -352,6 +353,34 @@ def seeded_rows(st, lo: int, hi: int, device=None
     sign = 1.0 - 2.0 * (u & 1).to(torch.float32)
     m = (u >> 9).to(torch.float32)                            # [0, 2^23)
     return cols, sign * (1.0 + m * 2.0 ** -23)
+
+
+def seeded_col_rows(st, cols: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The rows and slots holding columns ``cols (n,)``, one of each per
+    layer: ``(rows, slots)``, each ``(n, layers)`` int64, through the
+    layers' inverse permutations.  Layer t places column ``(a_t·x + b_t)
+    mod cols`` at position x (row ``t·rows_per_layer + x // r``, slot ``x
+    mod r``), so column j sits at ``x = a_t⁻¹·(j - b_t) mod cols`` (gcd(a_t,
+    cols) = 1); the products stay below 2^62 in int64."""
+    cols = cols.to(torch.int64)
+    dev = cols.device
+    inv = torch.tensor([pow(a, -1, st.cols) for a in st.strides], dtype=torch.int64, device=dev)
+    b = torch.tensor(st.offsets, dtype=torch.int64, device=dev)
+    x = inv * ((cols[:, None] - b) % st.cols) % st.cols
+    t = torch.arange(st.layers, dtype=torch.int64, device=dev)
+    return t * st.rows_per_layer + x // st.row_weight, x % st.row_weight
+
+
+def seeded_counts(st, erased: torch.Tensor) -> torch.Tensor:
+    """Each check row's count of erased neighbours, ``H·e`` for ``erased
+    (B, N)`` bool: ``(B, rows)`` int64, summed over each erased column's
+    rows (:func:`seeded_col_rows`), as the seeded kernel builds and keeps
+    its counts."""
+    B, N = erased.shape
+    rows, _ = seeded_col_rows(st, torch.arange(N, device=erased.device))
+    cnt = torch.zeros((B, st.rows), dtype=torch.int64, device=erased.device)
+    return cnt.scatter_add_(1, rows.reshape(1, -1).expand(B, -1),
+                            erased.to(torch.int64).repeat_interleave(st.layers, dim=1))
 
 
 def seeded_table(st, lo: int, hi: int, device=None

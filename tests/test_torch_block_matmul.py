@@ -16,11 +16,13 @@ in float64.  The card tests (tests/test_torch_cuda.py) hold the kernel
 against its plain version and float64.
 
 The card's design has plain versions of its own, held here: the split
-pass (``ref.split_terms_ref``: each f32 value as three bf16 terms) sums
-back to every finite f32 exactly for |x| >= 2^-110 and within 2^-134
-below, keeps inf and NaN as its first term, and splits a bf16 value into
-two terms of 4 bits; the product kernel's arithmetic (``ref.products_ref``: the
-terms' products but the smallest, in float64) is held against JAX's
+pass (``ref.split_terms_ref``: in chunks of 64 along k, each f32 value as
+a lead on the chunk's grid 2^(E-7) and three bf16 terms of the rest)
+sums back to every finite f32 exactly for |x| >= 2^-110 and within
+2^-134 below, keeps inf and NaN as its lead, and splits a bf16 value into
+a lead and an exact rest; a chunk's lead products sum exactly in f32; the
+product kernel's arithmetic (``ref.products_ref``: the terms' products
+but the smallest, in float64) is held against JAX's
 interpret-mode ``block_matmul`` and ``encode_moment_blocks`` (the
 tolerances above) and against float64 under the card's two gates: within
 K·2⁻²⁴·(|A|·|B|) entry by entry, and at most twice ``torch.matmul``'s
@@ -41,7 +43,8 @@ from repro_torch.core import encoding as tenc
 from repro_torch.kernels.block_matmul import (block_matmul, block_matmul_ref, coded_matvec,
                                               encode_gm, products_of_terms, products_ref,
                                               split_terms, split_terms_ref)
-from repro_torch.kernels.block_matmul.ref import BOTTOM_ERROR, EXACT_ABOVE, split3
+from repro_torch.kernels.block_matmul.ref import (BOTTOM_ERROR, CHUNK, EXACT_ABOVE, split2,
+                                                  split4)
 
 
 def _pair(a, dtype):
@@ -169,32 +172,104 @@ _SPLIT_VALUES = {
 }
 
 
+def _grid(x: torch.Tensor) -> torch.Tensor:
+    """Each value's chunk grid 2^(E-134) in float64, computed apart from
+    the split: E the largest exponent field (at least 1) of the finite
+    values in its chunk of 64 along the last axis."""
+    be = ((x.float().view(torch.int32).to(torch.int64) >> 23) & 0xFF).numpy()
+    ge = np.where(be == 0xFF, 0, np.maximum(be, 1))
+    C = ge.shape[-1]
+    ge = np.pad(ge, [(0, 0)] * (ge.ndim - 1) + [(0, -C % CHUNK)])
+    E = ge.reshape(*ge.shape[:-1], -1, CHUNK).max(-1).repeat(CHUNK, -1)[..., :C]
+    return torch.from_numpy(np.ldexp(1.0, E - 134))
+
+
 @pytest.mark.parametrize("values", list(_SPLIT_VALUES))
 def test_split_sums_back_exactly(values):
-    x = _SPLIT_VALUES[values]()
-    t1, t2, t3 = split3(x)
+    x = _SPLIT_VALUES[values]()[None]          # one row: chunks of 64 consecutive values
+    g, t1, t2, t3 = split4(x)
     fin = torch.isfinite(x)
     x64 = x.double()[fin]
-    total = (t1.double() + t2.double() + t3.double())[fin]
-    assert bool(torch.isfinite(t1[fin]).all())         # never rounded past bf16's range
+    total = (g.double() + t1.double() + t2.double() + t3.double())[fin]
+    assert bool(torch.isfinite(g[fin]).all())          # never rounded past bf16's range
     above = x64.abs() >= EXACT_ABOVE
     assert bool(above.any()) or values == "subnormal_end"
     assert torch.equal(total[above], x64[above])
     assert bool(((total - x64).abs() <= BOTTOM_ERROR).all())
     assert bool((~above).any()) or values != "subnormal_end"
-    # the magnitudes the products' orders rest on
-    ax = x64.abs()
-    assert bool((t2.double()[fin].abs() <= 2.0 ** -8 * ax * (1 + 2.0 ** -8)).all())
-    assert bool((t3.double()[fin].abs()[above] <= 2.0 ** -16 * ax[above]).all())
+    # the magnitudes the products' levels rest on: the lead an integer
+    # number of grid units below 2^8, cut toward zero; the rest below one
+    # unit; its later terms each within 2^-8 of the one before
+    unit = _grid(x)[fin]
+    n = g.double()[fin] / unit
+    assert torch.equal(n, n.trunc()) and bool((n.abs() < 256).all())
+    assert bool((g.double()[fin].abs() <= x64.abs()).all())
+    assert bool((n * x64 >= 0).all())
+    r = x64 - g.double()[fin]
+    assert bool((r.abs() < unit).all())
+    assert bool((t1.double()[fin].abs() <= unit).all())
+    assert bool((t2.double()[fin].abs() <= 2.0 ** -8 * r.abs() * (1 + 2.0 ** -8)).all())
+    assert bool((t3.double()[fin].abs()[above] <= 2.0 ** -16 * r.abs()[above]).all())
 
 
 @pytest.mark.parametrize("value,bits", [(float("inf"), 0x7F80), (-float("inf"), -0x80),
                                         (float("nan"), 0x7FC0), (-float("nan"), 0x7FC0)])
 def test_split_keeps_inf_and_nan_as_the_first_term(value, bits):
-    t1, t2, t3 = split3(torch.tensor([value, 1.5]))
-    assert int(t1.view(torch.int16)[0]) == bits
-    assert int(t2.view(torch.int16)[0]) == 0 and int(t3.view(torch.int16)[0]) == 0
-    assert float(t1[1]) == 1.5 and float(t2[1]) == 0.0
+    g, t1, t2, t3 = split4(torch.tensor([value, 1.5]))
+    assert int(g.view(torch.int16)[0]) == bits
+    assert not any(int(t.view(torch.int16)[0]) for t in (t1, t2, t3))
+    assert float(g[1]) == 1.5 and float(t1[1]) == 0.0     # the inf is no part of the grid
+
+
+@pytest.mark.parametrize("values", ["random_bits", "subnormal_end"])
+def test_a_zero_lead_tells_a_zero_from_a_tiny_value(values):
+    """The product kernel's epilogue reads a value's IEEE class from its
+    lead and first rest term: a lead of +0 only for a zero, -0 for a
+    nonzero value below its chunk's grid, whose sign the first rest term
+    carries down to f32's least subnormal (a signed zero below bf16's)."""
+    x = _SPLIT_VALUES[values]()[None]
+    g, t1, _, _ = split4(x)
+    fin = torch.isfinite(x)
+    gb = g.view(torch.int16).to(torch.int32) & 0xFFFF
+    zero_lead = fin & ((gb & 0x7FFF) == 0)
+    assert torch.equal((gb == 0)[fin], (x == 0)[fin])
+    tiny = zero_lead & (x != 0)
+    assert bool(tiny.any()) and bool((tiny & (x.abs() < 2.0 ** -133)).any())
+    assert bool((gb[tiny] == 0x8000).all())
+    assert torch.equal(torch.signbit(t1.float())[tiny], torch.signbit(x)[tiny])
+    lead = fin & ~zero_lead
+    assert torch.equal(torch.signbit(g.float())[lead], torch.signbit(x)[lead])
+    # bf16: a nonzero value whose lead is zero has a nonzero rest of its sign
+    xb = torch.from_numpy(np.random.default_rng(6).integers(-32768, 32768, (1, 4096))
+                          .astype(np.int16)).view(torch.bfloat16)
+    gb2, r = split2(xb)
+    fb = torch.isfinite(xb)
+    h = gb2.view(torch.int16).to(torch.int32) & 0xFFFF
+    assert torch.equal((h == 0)[fb], (xb == 0)[fb])
+    small = fb & (h == 0x8000)
+    assert bool(small.any()) and bool((r[small] != 0).all())
+    assert torch.equal(torch.signbit(r.float())[small], torch.signbit(xb.float())[small])
+
+
+def test_lead_products_sum_exactly_in_f32():
+    """Every partial sum of a chunk's lead products is an integer number of
+    the two grids' product below 2^22, so f32 holds it exactly: what lets a
+    tensor-core step cut nothing of them.  Rows of wide range and all but
+    one value small, and sums grown in the worst order."""
+    rng = np.random.default_rng(5)
+    a = rng.standard_normal((64, 4 * CHUNK)) * np.exp2(rng.integers(-20, 20, (64, 4 * CHUNK)))
+    b = rng.standard_normal((64, 4 * CHUNK))
+    b[::2] = np.abs(b[::2]) * 255.0 / 128.0      # all leads of one sign: the largest sums
+    ga = split4(torch.from_numpy(a).float())[0].double().numpy()
+    gb = split4(torch.from_numpy(b).float())[0].double().numpy()
+    ua, ub = (_grid(torch.from_numpy(v).float()).numpy() for v in (a, b))
+    for c in range(4):
+        cols = slice(c * CHUNK, (c + 1) * CHUNK)
+        prods = ga[:, None, cols] * gb[None, :, cols]          # (rows of a, rows of b, 64)
+        units = ua[:, None, cols] * ub[None, :, cols]
+        partial = np.cumsum(prods, axis=-1)
+        assert np.array_equal(partial.astype(np.float32).astype(np.float64), partial)
+        assert (np.abs(partial) < 2.0 ** 22 * units).all()
 
 
 @pytest.mark.parametrize("transpose", [False, True], ids=["rows", "cols"])
@@ -203,18 +278,22 @@ def test_split_of_bf16_is_two_exact_terms(transpose):
     bits = rng.integers(-32768, 32768, (3, 37, 65)).astype(np.int16)
     bits[0, 0, :4] = [0x7FC1, 0x7F80, -0x7F, 0x0003]     # a NaN payload, inf, a NaN, a subnormal
     x = torch.from_numpy(bits).view(torch.bfloat16)
+    x[1] = torch.randn((37, 65)).bfloat16()              # one plane of values near their chunk's top
     out = split_terms(x, transpose)                       # CPU: the plain version
     want = x.transpose(1, 2) if transpose else x
     inner = want.shape[-1]
     assert out.shape == (3, 2, want.shape[1], -(-inner // 8) * 8)
     t1, t2 = out[:, 0, :, :inner], out[:, 1, :, :inner]
+    assert all(torch.equal(t.view(torch.int16), w.view(torch.int16))
+               for t, w in zip((t1, t2), split2(want)))
     fin = torch.isfinite(want)
     assert torch.equal((t1.double() + t2.double())[fin], want.double()[fin])
-    # x1 keeps the sign, the exponent and the first 3 fraction bits; x2 the last 4
-    assert torch.equal(t1.view(torch.int16)[fin] & 0x000F,
-                       torch.zeros_like(t1.view(torch.int16)[fin]))
-    normal = fin & (want.double().abs() >= 2.0 ** -126)
-    assert bool((t2.double().abs() < t1.double().abs() / 8)[normal].all())
+    # the lead an integer number of its chunk's grid units below 2^8, the rest below one unit
+    unit = _grid(want.contiguous())[fin]
+    n = t1.double()[fin] / unit
+    assert torch.equal(n, n.trunc()) and bool((n.abs() < 256).all())
+    assert bool((t2.double()[fin].abs() < unit).all())
+    assert bool((n != 0).any()) and bool((n == 0).any())
     assert torch.equal(t1.view(torch.int16)[~fin], want.view(torch.int16)[~fin])
     assert not bool(t2[~fin].view(torch.int16).any())
     assert not bool(out[..., inner:].view(torch.int16).any())
@@ -227,7 +306,7 @@ def test_split_layout_is_the_terms_padded(shape):
         out = split_terms_ref(x, transpose)
         X = x if x.ndim == 3 else x[None]
         X = X.transpose(1, 2) if transpose else X
-        assert out.shape[:3] == (X.shape[0], 3, X.shape[1]) and out.shape[3] % 8 == 0
+        assert out.shape[:3] == (X.shape[0], 4, X.shape[1]) and out.shape[3] % 8 == 0
         assert 0 <= out.shape[3] - X.shape[2] < 8
         assert torch.equal(out[..., :X.shape[2]].double().sum(1), X.double())
         assert not bool(out[..., X.shape[2]:].view(torch.int16).any())

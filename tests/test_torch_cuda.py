@@ -369,14 +369,93 @@ def test_seeded_state_in_device_memory_equals_shared(cuda, monkeypatch, V):
 
 
 def test_structure_only_code_past_shared_memory(cuda):
-    code = SeededLDPC(N=65536, K=32768, l=4, r=8, seed=5)
+    # 2 bits a coordinate and a byte a row: N = 524288 of the (4, 8) code
+    # needs 384 KB, past a block's shared memory, so the state is in device
+    # memory (N = 262144, 192 KB, is the largest Path B runs in shared memory).
+    code = SeededLDPC(N=524288, K=262144, l=4, r=8, seed=5)
     st = decoder.seeded_spec(code)
+    assert ops.seeded_layout(st, 1, 1, cuda) == (1, False)  # no cluster holds it either
     v, e = _seeded_inputs(code.N, 1, 1, 0.3, 12, cuda)
     kv, ke = peel_decode_seeded_cuda(st, v[0], e[0], 6)
     pv, pe = decode_seeded_ref(st, v[0], e[0], 6)
     torch.cuda.synchronize()
     assert torch.equal(ke, pe) and _same(kv, pv)
     assert bool((e[0] & ~ke).any())
+
+
+# The redesigned seeded decode's edges: one pattern and eight, budgets of 0
+# beside busy slots, the state in shared memory (N = 32768, Path B's, and
+# N = 262144, the largest there) and in device memory (N = 524288), every
+# sorting width (row weight 8: 8; 16: 16; 24: 32; 40: 64) and selection
+# (80), each pattern on one block and on clusters of 2, 4 and 8 where they
+# hold it; all four contracts bit for bit against the plain versions.  The
+# (4, 8) codes at erasure fractions 0.25 and 0.45; the wider ones also at
+# 0.02 and 0.1, where their rows of one erased neighbour act.  Wherever a
+# pattern expects at least 10 such rows at the start (p·r·f·(1-f)^(r-1)),
+# something must resolve, so that every width's peel runs in every layout.
+_EDGE_CODES = {"ldpc_N32768": lambda: _seeded(16384),
+               "structure_N262144": lambda: SeededLDPC(N=262144, K=131072, l=4, r=8, seed=0),
+               "structure_N524288": lambda: SeededLDPC(N=524288, K=262144, l=4, r=8, seed=2),
+               **{n: (lambda K=K, l=l, r=r: make_seeded_ldpc(K, l=l, r=r, seed=1))
+                  for n, (K, l, r) in {"l12_r16": (128, 12, 16), "l20_r24": (64, 20, 24),
+                                       "l20_r40": (160, 20, 40),
+                                       "l8_r80": (720, 8, 80)}.items()}}
+_EDGE_CASES = [(n, f) for n in _EDGE_CODES
+               for f in ((0.25, 0.45) if n.startswith(("ldpc", "structure"))
+                         else (0.02, 0.1, 0.25, 0.45))]
+
+
+@pytest.mark.parametrize("name,f", _EDGE_CASES)
+@pytest.mark.parametrize("B", [1, 8])
+def test_seeded_decode_across_the_design_edges(cuda, name, B, f):
+    code = _EDGE_CODES[name]()
+    st = decoder.seeded_spec(code)
+    v, e = _seeded_inputs(code.N, B, 2, f, B + int(100 * f), cuda)
+    budgets = torch.tensor([0, 1, 3, 8, 8, 3, 1, 8][:B] if B > 1 else [8], dtype=torch.int32,
+                           device=cuda)
+    runs = [(lambda: peel_decode_batch_seeded_cuda(st, v, e, 8),
+             lambda: decode_seeded_batch_ref(st, v, e, 8)),
+            (lambda: peel_decode_batch_adaptive_seeded_cuda(st, v, e, budgets),
+             lambda: decode_seeded_batch_adaptive_ref(st, v, e, budgets))]
+    if B == 1:
+        runs += [(lambda: peel_decode_seeded_cuda(st, v[0], e[0], 8),
+                  lambda: decode_seeded_ref(st, v[0], e[0], 8)),
+                 (lambda: peel_decode_adaptive_seeded_cuda(st, v[0], e[0], 8),
+                  lambda: decode_seeded_adaptive_ref(st, v[0], e[0], 8))]
+    layouts = [C for C in (1, 2, 4, 8) if ops.seeded_cluster_fits(st, C)]
+    assert (len(layouts) == 1) == (name == "structure_N524288")
+    r = st.row_weight
+    must_peel = st.rows * r * f * (1 - f) ** (r - 1) >= 10
+    for kern, plain in runs:
+        pout = plain()
+        if must_peel:
+            assert bool((e.reshape(pout[1].shape) & ~pout[1]).any())
+        for C in layouts:
+            with ops.forced_cluster(C):
+                kout = kern()
+            torch.cuda.synchronize()
+            for k, p in zip(kout, pout):
+                assert torch.equal(k, p), C
+            assert _same(kout[0], pout[0]), C
+
+
+def test_seeded_cluster_dispatch_and_its_refusals(cuda):
+    st = decoder.seeded_spec(_seeded(16384))
+    # the largest cluster whose patterns are all resident on the card's SMs
+    sms = sm_count(cuda)
+    assert [ops.seeded_layout(st, B, 2, cuda)[0] for B in (
+        1, sms // 8, sms // 8 + 1, sms // 4, sms // 4 + 1, sms // 2, sms // 2 + 1)] == \
+        [8, 8, 4, 4, 2, 2, 1]
+    v, e = _seeded_inputs(st.cols, 1, 1, 0.3, 14, cuda)
+    with ops.forced_cluster(16), pytest.raises(RuntimeError):  # past the portable size
+        peel_decode_seeded_cuda(st, v[0], e[0], 4)
+    n = peel_decode_seeded_cuda.launches
+    with ops.forced_cluster(8):
+        got = peel_decode_seeded_cuda(st, v[0], e[0], 4)
+    assert peel_decode_seeded_cuda.launches == n + 1
+    torch.cuda.synchronize()
+    want = decode_seeded_ref(st, v[0], e[0], 4)
+    assert torch.equal(got[1], want[1]) and _same(got[0], want[0])
 
 
 @pytest.mark.parametrize("V", [1, 3])
@@ -542,9 +621,10 @@ def test_replay_entry_points_launch_the_kernel(cuda):
 # Row weight and layer count were once capped at 16.  Each network width
 # (16, 32, 64) and the selection path past 64 are held bit for bit.
 
-WIDE_LDPC = {"l20_r24": (64, 20, 24), "l20_r40": (160, 20, 40), "l8_r80": (720, 8, 80)}
-WIDE_LDGM = {"r24": (192, 96, 24), "layers20": (64, 160, 8), "r64": (128, 64, 64),
-             "r80": (160, 40, 80)}
+WIDE_LDPC = {"l12_r16": (128, 12, 16), "l20_r24": (64, 20, 24), "l20_r40": (160, 20, 40),
+             "l8_r80": (720, 8, 80)}
+WIDE_LDGM = {"r16": (128, 64, 16), "r24": (192, 96, 24), "layers20": (64, 160, 8),
+             "r64": (128, 64, 64), "r80": (160, 40, 80)}
 
 
 @pytest.mark.parametrize("name", list(WIDE_LDPC))
@@ -968,9 +1048,11 @@ def test_block_matmul_edges_match_plain_and_float64(cuda, M, K, N, dtypes):
 
 
 # The 2x gate over 40 seeds at short K, where the fold's first chunk holds
-# the whole sum: a wgmma step cuts its sum toward zero (up to 1 ulp of it),
-# which on one to three outputs can meet a torch.matmul that rounded well.
-@pytest.mark.parametrize("M,K,N", [(1, 1, 1), (1, 17, 3)])
+# the whole sum: the leads' product, on the chunk's grid, must reach the
+# output with no step's cut (a cut of up to 1 ulp of the sum could meet a
+# torch.matmul that rounded well on one to three outputs).  K = 64 and 63:
+# one whole chunk and one short of it.
+@pytest.mark.parametrize("M,K,N", [(1, 1, 1), (1, 17, 3), (1, 64, 3), (4, 63, 5)])
 def test_block_matmul_short_k_over_40_seeds(cuda, M, K, N):
     torch.backends.cuda.matmul.allow_tf32 = False
     failed = {}
@@ -1047,6 +1129,23 @@ def test_block_matmul_nonfinite_where_matmul_puts_them(cuda, dtypes):
     exact = torch.matmul(A.double(), B.double())
     bound = A.shape[-1] * 2.0 ** -24 * torch.matmul(A.double().abs(), B.double().abs())
     assert bool(((got.double() - exact).abs() <= bound)[finite].all())
+
+
+def test_block_matmul_inf_times_a_value_below_bf16(cuda):
+    # f32 values far below their chunk's grid, down to f32's least subnormal
+    # (2^-149, 2^-140, 2^-134, 2^-133, both signs), times +inf and -inf:
+    # ±inf in the IEEE sum, where 0·inf (a zero of either sign) gives NaN
+    g = torch.Generator(device=cuda).manual_seed(12)
+    tiny = torch.tensor([1, 0x200, 0x8000, 0x10000], dtype=torch.int32).view(torch.float32)
+    A = torch.randn((10, 70), generator=g, device=cuda)
+    B = torch.randn((70, 5), generator=g, device=cuda)
+    A[:, 3] = torch.cat([tiny, -tiny, torch.tensor([0.0, -0.0])]).to(cuda)
+    B[3, 0], B[3, 1] = float("inf"), -float("inf")
+    got = block_matmul(A, B)
+    want = torch.matmul(A.double(), B.double())
+    for pick in (torch.isnan, lambda t: t == float("inf"), lambda t: t == -float("inf")):
+        assert torch.equal(pick(got), pick(want))
+    assert int(torch.isinf(want).sum()) == 16 and int(torch.isnan(want).sum()) == 4
 
 
 def test_block_matmul_counts_launches_by_kernel(cuda):

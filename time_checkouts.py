@@ -1,8 +1,8 @@
 """Time one workload on one card for one or more checkouts of the port, in
 alternating runs.
 
-    python3 time_checkouts.py ROOT [ROOT ...] --what encode|decode_step [--rounds 2]
-                              [--reps 5] [--steps 32] [--seed 0]
+    python3 time_checkouts.py ROOT [ROOT ...] --what encode|decode_step|seeded_decode
+                              [--rounds 2] [--reps 5] [--steps 32] [--seed 0]
 
 Each ROOT is the root of a checkout whose ``src/`` holds ``repro_torch``
 (for example this one, ``.``, and another commit unpacked with ``git
@@ -18,6 +18,15 @@ two rounds), each run a process of its own.  The workloads:
   inputs (f32, TF32 off), each call timed by CUDA events, ``--reps`` calls
   after one warm-up, and the encode's largest distance from
   ``torch.matmul``.
+* ``seeded_decode``: ``chip_smoke.py`` phase 10's seeded decodes, the
+  four contracts at Path B's shapes (the structure of
+  ``make_seeded_ldpc(16384)``, N = 32768, V = 2, D = 8, erasure fraction
+  0.25 from ``--seed``; one pattern, and 8 under the budgets 0, 1, 3, 8, 8,
+  3, 1, 8 for the batched early exit), then the fixed-D decode of one
+  pattern at N = 262144, V = 1, and both fixed-D decodes with D = 0 (the
+  set-up and write-back alone), each call timed by CUDA events, ``--reps``
+  calls after one warm-up; each contract's output is checked bit for bit
+  against its first call.
 * ``decode_step``: Qwen3-1.7B at full width in bf16 on random weights from
   ``--seed``, a prefill of 4 prompts of 2048 tokens, then three spans of
   ``--steps`` greedy decode steps, each timed on the host clock after a
@@ -42,7 +51,69 @@ from pathlib import Path
 
 BATCH, PROMPT, SPANS = 4, 2048, 3            # decode_step
 BLOCKS, K, COLS = 32, 1024, 32768             # encode
-LIBRARY = {"encode": "block_matmul", "decode_step": "flash_attention"}
+PATH_B, BIG = 32768, 262144                    # seeded_decode
+LIBRARY = {"encode": "block_matmul", "decode_step": "flash_attention",
+           "seeded_decode": "seeded_decode"}
+
+
+def event_times(fn, reps: int) -> list[float]:
+    """``reps`` calls of ``fn`` after one warm-up, each timed by CUDA events (ms)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(stop))
+    return out
+
+
+def seeded_decode(args) -> dict:
+    """One seeded-decode run in this process, on the ``repro_torch`` that
+    ``sys.path`` finds."""
+    import torch
+
+    from repro_torch.core import decoder
+    from repro_torch.core.ldpc import SeededLDPC
+    from repro_torch.kernels.ldpc_peel import (peel_decode_adaptive_seeded_cuda,
+                                               peel_decode_batch_adaptive_seeded_cuda,
+                                               peel_decode_batch_seeded_cuda,
+                                               peel_decode_seeded_cuda)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(args.seed + 10)
+    st = decoder.seeded_spec(SeededLDPC(N=PATH_B, K=PATH_B // 2, l=4, r=8, seed=0))
+    big = decoder.seeded_spec(SeededLDPC(N=BIG, K=BIG // 2, l=4, r=8, seed=0))
+    e = torch.rand((8, PATH_B), generator=g, device=dev) < 0.25
+    v = torch.where(e[..., None], 0.0, torch.randn((8, PATH_B, 2), generator=g, device=dev))
+    budgets = torch.tensor([0, 1, 3, 8, 8, 3, 1, 8], dtype=torch.int32, device=dev)
+    v0, e0 = v[0].contiguous(), e[0].contiguous()
+    eb = torch.rand(BIG, generator=g, device=dev) < 0.25
+    vb = torch.where(eb[:, None], 0.0, torch.randn((BIG, 1), generator=g, device=dev))
+    calls = {"decode_seeded_ms": lambda: peel_decode_seeded_cuda(st, v0, e0, 8),
+             "decode_seeded_batch_ms": lambda: peel_decode_batch_seeded_cuda(st, v, e, 8),
+             "decode_seeded_adaptive_ms": lambda: peel_decode_adaptive_seeded_cuda(st, v0, e0, 8),
+             "decode_seeded_batch_adaptive_ms":
+                 lambda: peel_decode_batch_adaptive_seeded_cuda(st, v, e, budgets),
+             "decode_seeded_N262144_ms": lambda: peel_decode_seeded_cuda(big, vb, eb, 8),
+             # no rounds: the set-up and the write-back alone
+             "decode_seeded_D0_ms": lambda: peel_decode_seeded_cuda(st, v0, e0, 0),
+             "decode_seeded_N262144_D0_ms": lambda: peel_decode_seeded_cuda(big, vb, eb, 0)}
+    out = {}
+    for name, fn in calls.items():
+        first = fn()
+        out[name] = event_times(fn, args.reps)
+        again = fn()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            raise RuntimeError(f"{name}: two calls differ")
+    unresolved = int(peel_decode_seeded_cuda(big, vb, eb, 8)[1].sum())
+    return {**out, "unresolved_N262144": unresolved, "card": torch.cuda.get_device_name(0)}
 
 
 def encode(args) -> dict:
@@ -59,21 +130,8 @@ def encode(args) -> dict:
     Mb = torch.randn((BLOCKS, K, COLS),
                      generator=torch.Generator(device=dev).manual_seed(args.seed), device=dev)
 
-    def times(fn) -> list[float]:
-        fn()
-        torch.cuda.synchronize()
-        out = []
-        for _ in range(args.reps):
-            start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            start.record()
-            fn()
-            stop.record()
-            torch.cuda.synchronize()
-            out.append(start.elapsed_time(stop))
-        return out
-
-    enc = times(lambda: encode_gm(G, Mb))
-    matmul = times(lambda: torch.matmul(G, Mb))
+    enc = event_times(lambda: encode_gm(G, Mb), args.reps)
+    matmul = event_times(lambda: torch.matmul(G, Mb), args.reps)
     dist = float((encode_gm(G, Mb) - torch.matmul(G, Mb)).abs().max())
     return {"encode_ms": enc, "matmul_ms": matmul, "max_abs_diff_vs_matmul": dist,
             "card": torch.cuda.get_device_name(0)}
@@ -151,7 +209,7 @@ def host_us(dev, g, calls: int = 200) -> dict:
     return out
 
 
-WORKERS = {"encode": encode, "decode_step": decode_step}
+WORKERS = {"encode": encode, "decode_step": decode_step, "seeded_decode": seeded_decode}
 
 
 def run(root: Path, args) -> dict:
@@ -182,7 +240,8 @@ def main() -> int:
     ap.add_argument("roots", nargs="*", type=Path)
     ap.add_argument("--what", choices=sorted(WORKERS), required=True)
     ap.add_argument("--rounds", type=int, default=2)
-    ap.add_argument("--reps", type=int, default=5, help="encode: timed calls a run")
+    ap.add_argument("--reps", type=int, default=5,
+                    help="encode, seeded_decode: timed calls a run")
     ap.add_argument("--steps", type=int, default=32, help="decode_step: steps a span")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
