@@ -36,7 +36,10 @@ Phases, each printing its own lines:
    accounting must be identical between the two, every gradient within an
    anchored bound of the dense run's, and the decode kernel's launches must
    equal the batcher's.  Prints queries/s, launches, slot-rounds, the
-   kernel's ms per launch and the device's busy share;
+   kernel's ms per launch and the device's busy share.  Phases 5, 7, 8, 11
+   and 15 print the table decode's time beside its byte bound, its column
+   table's bytes (outside the bound) and its plain version's time, and the
+   grid and state placement it launched (ops.table_layout);
 9. the seeded kernels against their plain versions: the four seeded decode
    contracts on make_seeded_ldpc codes at N in {2048, 32768}, B in
    {1, 8, 64}, V in {1, 2}, erasure fractions {0, 0.25, 0.45}, mixed
@@ -62,7 +65,10 @@ Phases, each printing its own lines:
    a step, D = 8, 20 steps of run_pgd.  The encode and decode kernels
    launch once a step each, and the run with encode_fused=False (the table
    gather) on the same masks is bit-identical.  Prints ms per step, the
-   device's busy share and the encode against torch.sparse.mm;
+   device's busy share and the encode against torch.sparse.mm; then the
+   table decode at the step's shape (N = 24,576, V = 1, D = 8, step 1's
+   stragglers) bit for bit against its plain version, timed beside it and
+   its bound, with the layout it launched;
 12. the replay kernel against its plain version: the (40, 20) code and the
    (3, 6) code at K = 256 with Gaussian and ±1 weights, the four contracts
    under their rules ("hi" for one pattern, "lo" for a batch), B in
@@ -83,9 +89,13 @@ Phases, each printing its own lines:
    identical, gradients within the anchored bound, replay launches equal
    to the batcher's; prints queries/s of cold runs (every query brings a
    new pattern, as in phase 8);
-15. the table decode past shared memory: make_parity_only_ldpc(24576)
-   (N = 49,152, state in device memory), all four contracts against the
-   table plain version, bit for bit; prints the kernel's ms;
+15. the table decode at N = 49,152 and past shared memory:
+   make_parity_only_ldpc(24576) (N = 49,152, state in shared memory), and
+   its columns spread over the fewest columns whose state is past a
+   block's shared memory (the stride from the state's size, held to the
+   library's), all four contracts at both against the table plain
+   version, bit for bit; prints the kernel's ms at both, its bound and
+   plain time, and where each state went;
 16. the flash-attention kernels against their plain version: f32 and
    bf16, G in {1, 2, 8}, Dh in {64, 128}, prefill Sq = Sk in {17, 512,
    2048} causal and not, decode Sq = 1 over T in {1, 2080, 4096}, a wrapped
@@ -306,6 +316,21 @@ def seeded_dispatch(st, B: int, V: int) -> str:
     grid = f"grid ({C * -(-V // 4)}, {B}) of 512-thread blocks"
     return (f"{grid} in clusters of {C}" if C > 1 else f"{grid}, one a pattern") + \
         f", state in {'shared' if in_shared else 'device'} memory"
+
+
+def table_dispatch(tables, B: int, V: int) -> str:
+    """The grid the table decode launches for B patterns of V payload
+    columns, where its per-block state lives (the wrapper's dispatch by
+    shape, ``ops.table_layout``), and its column table's bytes (this
+    design's own cost, outside the bound)."""
+    from repro_torch.kernels.ldpc_peel import ops
+    lay = ops.table_layout(tables, B, V)
+    col_ptr, col_rows = ops._column_table(tables.check_idx, tables.N)
+    where = {True: "shared", False: "device"}
+    return (f"grid {lay.grid} of 512-thread blocks, one a pattern and 4 payload columns, "
+            f"in {where[lay.state]} memory the state, in {where[lay.values]} memory the "
+            f"values, in {where[lay.tables]} memory the tables; column table "
+            f"{(col_ptr.numel() + col_rows.numel()) * 4} B (outside the bound)")
 
 
 def same_bits(a, b) -> bool:
@@ -1750,6 +1775,7 @@ def main() -> int:
           f"ms at N={code.N} V={V} D={D}; bound {bound_ms:.6f} ms ({once} B once) "
           f"or {per_round / HBM_BYTES_PER_S * 1e3:.6f} ms ({per_round} B, "
           f"tables and values every round); max |kernel - plain| {err:.3e}")
+    print(f"[full] decode kernel layout: {table_dispatch(tables, 1, V)}")
     # ------------------------ 6. batched and early-exit contracts vs plain
     t0 = time.perf_counter()
     gen6 = torch.Generator(device=dev).manual_seed(args.seed + 6)
@@ -1900,6 +1926,7 @@ def main() -> int:
           f"bound {adaptive_bound_ms:.6f} ms ({once7} B once) or "
           f"{reread7 / HBM_BYTES_PER_S * 1e3:.6f} ms ({reread7} B, tables and values "
           f"every round); max |kernel - plain| {err7:.3e}")
+    print(f"[adaptive] decode kernel layout: {table_dispatch(tables, 1, 1)}")
     del prob7
     full5["M7"] = mom7.M
 
@@ -2056,7 +2083,7 @@ def main() -> int:
               f"version {p_ms:.4f} ms at B={B8} N={code.N} V=1, {rounds} rounds; bound "
               f"{times[name][2]:.6f} ms ({once} B once) or "
               f"{reread / HBM_BYTES_PER_S * 1e3:.6f} ms ({reread} B, tables and values "
-              f"every round); max |kernel - plain| {err:.3e}")
+              f"every round); max |kernel - plain| {err:.3e}; {table_dispatch(tables, B8, 1)}")
     # ------------------------------------------- 9. seeded kernels vs plain
     t0 = time.perf_counter()
     seeded_codes = {N: make_seeded_ldpc(N // 2, seed=0) for N in (2048, 32768)}
@@ -2383,6 +2410,26 @@ def main() -> int:
           f"{enc_plain_ms:.4f} ms, torch.sparse.mm on the CSR generator {enc_lib_ms:.4f} "
           f"ms at K={K11} N={ldgm.N} V=1; bound {enc_bound_ms:.6f} ms ({enc_once} B "
           f"once); kernel bit-identical to the plain version")
+    # The table decode at the step's shape: the whole codeword of M theta,
+    # step 1's 2458 stragglers erased, D = 8, bit for bit against its plain
+    # version, timed.
+    tables11 = decoder.code_tables(ldgm, dev)
+    v11 = torch.where(masks[0][:, None], 0.0, got).contiguous()
+    kout11 = peel_decode_cuda(tables11, v11, masks[0], D11)
+    pout11 = decode_table_ref(tables11.check_idx, tables11.check_coeff, v11, masks[0], D11)
+    torch.cuda.synchronize()
+    check(all_same(kout11, pout11), "Path A decode: kernel and plain version differ")
+    dec11_ms = cuda_ms(lambda: peel_decode_cuda(tables11, v11, masks[0], D11), 200)
+    dec11_plain_ms = cuda_ms(lambda: decode_table_ref(tables11.check_idx, tables11.check_coeff,
+                                                      v11, masks[0], D11), 20)
+    p11r, r11 = tables11.check_idx.shape
+    dec11_once = decode_bytes(p11r, r11, 1, ldgm.N, 1)
+    dec11_bound_ms = dec11_once / HBM_BYTES_PER_S * 1e3
+    print(f"[pathA] decode_fused kernel {dec11_ms:.4f} ms, plain version {dec11_plain_ms:.4f} "
+          f"ms at N={ldgm.N} p={p11r} r={r11} V=1 D={D11}, {int(masks[0].sum())} erased, "
+          f"{int((masks[0] & ~kout11[1]).sum())} resolved; bound {dec11_bound_ms:.6f} ms "
+          f"({dec11_once} B once); bit-identical to the plain version; "
+          f"{table_dispatch(tables11, 1, 1)}")
     del mom, fused, table, res11, ref11, G_csr
 
     # ------------------------------------------- 12. replay kernel vs plain
@@ -2666,52 +2713,78 @@ def main() -> int:
           f"bound {replay_bound_ms:.6f} ms ({replay_once} B once); max |kernel - plain| "
           f"{err14:.3e}")
 
-    # -------------------------------- 15. the table decode past shared memory
+    # ------------------- 15. the table decode at N = 49,152 and past shared memory
     t0 = time.perf_counter()
     code15 = make_parity_only_ldpc(24576, seed=args.seed)
     build15 = time.perf_counter() - t0
     N15, B15, V15, D15 = code15.N, 4, 2, 8
     tables15 = decoder.code_tables(code15, dev)
     del code15                                 # H is 4.5 GiB on the host
-    smem15 = peel_ops._smem_bytes(N15)
-    check(smem15 > peel_ops.MAX_SMEM_BYTES, f"N={N15}: the state fits in shared memory")
+    p15, r15 = tables15.check_idx.shape
+    lib15 = peel_ops._lib()
+    # the stride that spreads the code's columns past a block's shared
+    # memory comes from the library's sizes; the wrapper's mirror of them,
+    # which the CPU tests read, is the library's
+    stride15 = 1
+    while lib15.peel_decode_smem_bytes(N15 * stride15, p15, r15, 1, 1) <= peel_ops.MAX_SMEM_BYTES:
+        stride15 += 1
+    for n in (N15, N15 * stride15):
+        check(all(peel_ops._smem_bytes(n, p15, r15, V, place)
+                  == lib15.peel_decode_smem_bytes(n, p15, r15, V, place)
+                  for V in (1, 2, 3, 32) for place in (0, 1, 3, 7))
+              and peel_ops._state_bytes(n, p15, r15)
+              == lib15.peel_decode_state_bytes(n, p15, r15),
+              f"N={n}: the wrapper's shared-memory sizes are not the library's")
+    wide15 = tables15._replace(check_idx=(tables15.check_idx * stride15).contiguous(),
+                               N=N15 * stride15)
+    check(peel_ops.table_layout(tables15, B15, V15)[1], f"N={N15}: the state is not on chip")
+    check(not peel_ops.table_layout(wide15, B15, V15)[1],
+          f"N={wide15.N}: the state fits in shared memory")
     gen15 = torch.Generator(device=dev).manual_seed(args.seed + 15)
-    idx15, w15 = tables15.check_idx, tables15.check_coeff
     n15 = 0
-    for f in (0.25, 0.45):
-        e = torch.rand((B15, N15), generator=gen15, device=dev) < f
-        v = torch.randn((B15, N15, V15), generator=gen15, device=dev)
-        v = torch.where(e[..., None], 1e3 * v, v).contiguous()
-        budgets = torch.tensor([0, 3, D15, N15], dtype=torch.int32, device=dev)
-        for kern, plain in (
-                (lambda: peel_decode_cuda(tables15, v[1], e[1], D15),
-                 lambda: decode_table_ref(idx15, w15, v[1], e[1], D15)),
-                (lambda: peel_decode_batch_cuda(tables15, v, e, D15),
-                 lambda: decode_table_batch_ref(idx15, w15, v, e, D15)),
-                (lambda: peel_decode_adaptive_cuda(tables15, v[3], e[3], N15),
-                 lambda: decode_table_adaptive_ref(idx15, w15, v[3], e[3], N15)),
-                (lambda: peel_decode_batch_adaptive_cuda(tables15, v, e, budgets),
-                 lambda: decode_table_batch_adaptive_ref(idx15, w15, v, e, budgets))):
-            kout, pout = kern(), plain()
-            torch.cuda.synchronize()
-            check(all_same(kout, pout), f"N={N15} f={f}: table kernel and plain differ")
-            n15 += 1
-        if f == 0.25:
-            v1, e1 = v[1].contiguous(), e[1].contiguous()
-            big_table_ms = cuda_ms(lambda: peel_decode_cuda(tables15, v1, e1, D15), 20)
-            big_table_plain_ms = cuda_ms(lambda: decode_table_ref(idx15, w15, v1, e1, D15), 3)
-            resolved15 = int((e1 & ~peel_decode_cuda(tables15, v1, e1, D15)[1]).sum())
-    p15, r15 = idx15.shape
-    big_once = p15 * r15 * 8 + 2 * N15 * V15 * 4 + 2 * N15
+    for tabs in (tables15, wide15):
+        N, (idx15, w15) = tabs.N, tabs[:2]
+        for f in (0.25, 0.45):
+            e = torch.zeros((B15, N), dtype=torch.bool, device=dev)
+            e[:, ::N // N15] = torch.rand((B15, N15), generator=gen15, device=dev) < f
+            v = torch.randn((B15, N, V15), generator=gen15, device=dev)
+            v = torch.where(e[..., None], 1e3 * v, v).contiguous()
+            budgets = torch.tensor([0, 3, D15, N], dtype=torch.int32, device=dev)
+            for kern, plain in (
+                    (lambda: peel_decode_cuda(tabs, v[1], e[1], D15),
+                     lambda: decode_table_ref(idx15, w15, v[1], e[1], D15)),
+                    (lambda: peel_decode_batch_cuda(tabs, v, e, D15),
+                     lambda: decode_table_batch_ref(idx15, w15, v, e, D15)),
+                    (lambda: peel_decode_adaptive_cuda(tabs, v[3], e[3], N),
+                     lambda: decode_table_adaptive_ref(idx15, w15, v[3], e[3], N)),
+                    (lambda: peel_decode_batch_adaptive_cuda(tabs, v, e, budgets),
+                     lambda: decode_table_batch_adaptive_ref(idx15, w15, v, e, budgets))):
+                kout, pout = kern(), plain()
+                torch.cuda.synchronize()
+                check(all_same(kout, pout), f"N={N} f={f}: table kernel and plain differ")
+                n15 += 1
+            if f == 0.25:
+                v1, e1 = v[1].contiguous(), e[1].contiguous()
+                ms = cuda_ms(lambda: peel_decode_cuda(tabs, v1, e1, D15), 20)
+                plain_ms15 = cuda_ms(lambda: decode_table_ref(idx15, w15, v1, e1, D15), 3)
+                res15 = int((e1 & ~peel_decode_cuda(tabs, v1, e1, D15)[1]).sum())
+                once15 = decode_bytes(p15, r15, 1, N, V15)
+                print(f"[large-table] decode_fused at N={N} V={V15} D={D15} f=0.25 ({res15} "
+                      f"resolved): kernel {ms:.4f} ms, plain version {plain_ms15:.4f} ms; "
+                      f"bound {once15 / HBM_BYTES_PER_S * 1e3:.6f} ms ({once15} B once); "
+                      f"{table_dispatch(tabs, 1, V15)}")
+                if tabs is tables15:
+                    big_table_ms, big_table_plain_ms = ms, plain_ms15
+                    big_bound_ms = once15 / HBM_BYTES_PER_S * 1e3
     print(f"[large-table] make_parity_only_ldpc(24576): N = {N15}, built in {build15:.1f} s "
-          f"(host numpy, dense H); per-block state {smem15} B > {peel_ops.MAX_SMEM_BYTES} B of "
-          f"shared memory, "
-          f"so in device memory; all four contracts at B={B15} V={V15} D={D15}, f in (0.25, "
-          f"0.45), budgets (0, 3, 8, N): {n15} cases bit-identical to the table plain version")
-    print(f"[large-table] decode_fused at N={N15} V={V15} D={D15} f=0.25 ({resolved15} "
-          f"resolved): kernel {big_table_ms:.4f} ms, plain version {big_table_plain_ms:.4f} "
-          f"ms; bound {big_once / HBM_BYTES_PER_S * 1e3:.6f} ms ({big_once} B once)")
-    del tables15
+          f"(host numpy, dense H); per-block shared memory "
+          f"{lib15.peel_decode_smem_bytes(N15, p15, r15, 1, 1)} B <= {peel_ops.MAX_SMEM_BYTES} B, "
+          f"so its state on chip; spread over N = {wide15.N} columns (stride {stride15}, from "
+          f"the state's size) {lib15.peel_decode_smem_bytes(wide15.N, p15, r15, 1, 1)} B > "
+          f"{peel_ops.MAX_SMEM_BYTES} B, so in device memory; all four contracts at both N, "
+          f"B={B15} V={V15} D={D15}, f in (0.25, 0.45), budgets (0, 3, 8, N): {n15} cases "
+          f"bit-identical to the table plain version")
+    del tables15, wide15
 
     # ---------------------------------- 16. the flash kernel against its plain version
     flash = flash_phase(dev, args.seed)
@@ -2739,7 +2812,10 @@ def main() -> int:
         "replaces": tpu + "353", "also_replaces": tpu + "600",
         "launches": launches, "max_abs_err": max_abs_err, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
-        "library_ms": None,
+        "library_ms": None, "path_a_launches": launches11["decode_fused"],
+        "path_a_ms": dec11_ms, "path_a_plain_ms": dec11_plain_ms,
+        "path_a_bound_ms": dec11_bound_ms, "n49152_ms": big_table_ms,
+        "n49152_plain_ms": big_table_plain_ms, "n49152_bound_ms": big_bound_ms,
     }]
     for name, line, tiled, n in (
             ("decode_fused_batch", "402", "651", serving["lockstep"]["launches"]),

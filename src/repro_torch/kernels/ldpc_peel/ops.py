@@ -15,13 +15,20 @@ wrapper                        contract (TPU kernel it replaces)
                                per-slot budgets (``decode_fused_batch_adaptive``)
 ============================== ============================================
 
-All four launch the one hand-written kernel (``csrc/peel_decode.cu``).
+All four launch the one hand-written kernel (``csrc/peel_decode.cu``),
+which keeps a count of erased neighbours per check row, reaches a
+coordinate's rows through the table's column table (:func:`.ref.column_table`,
+built from ``check_idx`` on its device and kept beside that tensor while
+it is unchanged) and acts only on the rows with one erased neighbour.
 For tensors on a CUDA device a wrapper launches it or raises; for tensors
 on the CPU it runs the plain PyTorch version over the same table
 (:mod:`.ref`, ``decode_table*_ref``).  There is no other path: a failed
-build or launch is an error, never a fallback.  Past the shared memory a
-block may hold (N ~ 46,000) each block's state moves to device memory, so
-the decode has no limit on N but device memory.
+build or launch is an error, never a fallback.  A block's state (two bits
+a coordinate, a count a row and the XOR of each row's erased columns)
+lives in shared memory while it fits (a (3, 6) code up to N ~ 77,000) and
+in device memory past that, so the decode has no limit on N but device
+memory; while they fit too, its payload columns and then the code's
+tables join it there (:func:`table_layout`).
 
 The SEEDED codes have wrappers of their own, which take the code's
 seeded structure (``repro_torch.core.ldpc.SeededStructure``) in place of a
@@ -87,7 +94,8 @@ __all__ = ["CodeTables", "peel_decode_cuda", "peel_decode_batch_cuda",
            "peel_decode_seeded_cuda", "peel_decode_batch_seeded_cuda",
            "peel_decode_adaptive_seeded_cuda",
            "peel_decode_batch_adaptive_seeded_cuda", "encode_seeded_fused_cuda",
-           "forced_cluster", "seeded_layout", "seeded_cluster_fits",
+           "forced_cluster", "seeded_layout", "seeded_cluster_fits", "TableLayout",
+           "table_layout",
            "ReplayPack", "check_replay_host", "peel_decode_replay_cuda", "MAX_SMEM_BYTES",
            "check_pass_cuda", "peel_round_cuda"]
 
@@ -106,8 +114,44 @@ class CodeTables(NamedTuple):
     N: int
 
 
-def _smem_bytes(N: int) -> int:
-    return ((N + 15) & ~15) + 4 * N        # as peel_decode_smem_bytes()
+# What a table-decode block keeps in shared memory whatever the shape: its
+# warps' lists of acting rows (16 warps of 160 ints), three counters
+# (padded to 16 bytes) and its list of a round's resolved coordinates (2048
+# ints) (kOwnBytes in csrc/peel_decode.cu).
+_OWN_BYTES = 16 * 160 * 4 + 16 + 2048 * 4
+# Flags of where a table-decode block's operands live (``place``):
+# each puts one more of them in shared memory, in this order.
+_STATE_ON_CHIP, _VALUES_ON_CHIP, _TABLES_ON_CHIP = 1, 2, 4
+
+
+def _pad16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def _state_bytes(N: int, p: int, r: int) -> int:
+    """A table-decode block's state, as ``peel_decode_state_bytes()``: the
+    erased and the resolved bitmaps of ``N`` bits (each padded to 16 bytes),
+    a count per check row, one byte while ``r <= 255``, else two (padded to
+    16 bytes), and the XOR of each row's erased columns (an int a row)."""
+    words = ((N + 31) // 32 + 3) & ~3
+    return 8 * words + _pad16(p * (1 if r <= 255 else 2)) + _pad16(4 * p)
+
+
+def _smem_bytes(N: int, p: int, r: int, V: int = 1, place: int = _STATE_ON_CHIP) -> int:
+    """Shared memory a table-decode block takes, as
+    ``peel_decode_smem_bytes()``: its lists and counters, and what ``place``
+    puts on chip (by default the state alone): the state; the block's
+    payload columns (1, 2 or 4 floats a coordinate for V = 1, 2 or more);
+    the table, the column table's rows (reserved at ``p·r``) and its ``N +
+    1`` offsets."""
+    size = _OWN_BYTES
+    if place & _STATE_ON_CHIP:
+        size += _state_bytes(N, p, r)
+    if place & _VALUES_ON_CHIP:
+        size += _pad16(N * (V if V <= 2 else _COLS_PER_BLOCK) * 4)
+    if place & _TABLES_ON_CHIP:
+        size += 3 * _pad16(4 * p * r) + _pad16(4 * (N + 1))
+    return size
 
 
 def _load(name: str) -> ctypes.CDLL:
@@ -129,10 +173,13 @@ def _raise_on(rc: int, lib: ctypes.CDLL, name: str) -> None:
 def _lib() -> ctypes.CDLL:
     lib = _load("peel_decode")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.peel_decode_launch.argtypes = [ptr, ptr, i32, i32, ptr, ptr, ptr, ptr,
+    lib.peel_decode_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ptr, ptr, ptr,
                                        ptr, ptr, ptr, ptr, i32, i32, i32, i32,
-                                       i32, ptr]
+                                       i32, i32, ptr]
     lib.peel_decode_launch.restype = ctypes.c_int
+    lib.peel_decode_state_bytes.argtypes = [i32, i32, i32]
+    lib.peel_decode_smem_bytes.argtypes = [i32, i32, i32, i32, i32]
+    lib.peel_decode_state_bytes.restype = lib.peel_decode_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 
@@ -184,44 +231,115 @@ def _check(tables: CodeTables, values: torch.Tensor, erased: torch.Tensor,
         raise ValueError("empty code, batch or payload")
 
 
-def _state(B: int, N: int, V: int, dev: torch.device) -> torch.Tensor | None:
-    """Past the shared memory a block may hold, a device-memory scratch of
-    one ``_smem_bytes(N)`` state per block (the kernel initialises it at
-    every launch); None while the state fits in shared memory."""
-    if _smem_bytes(N) <= MAX_SMEM_BYTES:
-        return None
-    blocks = -(-V // _COLS_PER_BLOCK) * B
-    return torch.empty(blocks * _smem_bytes(N), dtype=torch.uint8, device=dev)
+def _column_table(idx: torch.Tensor, N: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The column table of ``check_idx`` on its device (:func:`.ref.column_table`),
+    built once and kept on that tensor under its version, storage and ``N``:
+    an in-place change of the table, or a table of another code (a
+    ``CodeTables._replace``), builds it anew, so it is never stale."""
+    key = (idx._version, idx.data_ptr(), N)
+    hit = getattr(idx, "_peel_column_table", None)
+    if hit is None or hit[0] != key:
+        hit = (key, ref.column_table(idx, N))
+        idx._peel_column_table = hit
+    return hit[1]
+
+
+class TableLayout(NamedTuple):
+    """Where a table-decode launch puts what (:func:`table_layout`)."""
+
+    grid: tuple[int, int]          # (ceil(V / 4), B) blocks of 512 threads
+    state: bool                    # the state in shared memory (else device memory)
+    values: bool                   # the block's payload columns in shared memory
+    tables: bool                   # the table and its column table in shared memory
+
+    @property
+    def place(self) -> int:
+        return (self.state * _STATE_ON_CHIP | self.values * _VALUES_ON_CHIP
+                | self.tables * _TABLES_ON_CHIP)
+
+
+def _smem_sizer(on_card: bool):
+    """The function that sizes a table-decode block's shared memory,
+    ``(N, p, r, V, place) -> bytes``: on the card the library's own
+    ``peel_decode_smem_bytes``, so the dispatch follows the kernel's
+    layout; elsewhere its mirror :func:`_smem_bytes`, which the CPU tests
+    read and a card test holds equal to the library."""
+    return _lib().peel_decode_smem_bytes if on_card else _smem_bytes
+
+
+@functools.lru_cache(maxsize=256)
+def _place(N: int, p: int, r: int, V: int, max_smem: int, on_card: bool) -> int:
+    """The placement flags of :func:`table_layout` for these shapes under a
+    shared-memory cap of ``max_smem`` bytes, sized by :func:`_smem_sizer`."""
+    smem_bytes = _smem_sizer(on_card)
+    place = 0
+    for flag in (_STATE_ON_CHIP, _VALUES_ON_CHIP, _TABLES_ON_CHIP):
+        if smem_bytes(N, p, r, V, place | flag) > max_smem:
+            break
+        place |= flag
+    return place
+
+
+def table_layout(tables: CodeTables, B: int, V: int) -> TableLayout:
+    """The dispatch by shape of the table decode.  The grid is ``(ceil(V /
+    4), B)`` blocks of 512 threads, a block owning 4 payload columns of one
+    pattern and computing the pattern's trajectory itself.  Then, in turn,
+    while the block's shared memory (:func:`_smem_sizer`) stays within
+    ``MAX_SMEM_BYTES``: its state (the erased and resolved bitmaps, a count
+    and an XOR per check row), its payload columns (the rounds read and write
+    them there; they go out at the end) and the code's table and column
+    table go to shared memory.  A state that does not fit lives in a
+    device-memory scratch of one state per block, initialised by the kernel
+    at every launch; values and tables that do not fit are read from device
+    memory."""
+    p, r = tables.check_idx.shape
+    place = _place(tables.N, p, r, V, MAX_SMEM_BYTES, tables.check_idx.device.type == "cuda")
+    return TableLayout((-(-V // _COLS_PER_BLOCK), B), bool(place & _STATE_ON_CHIP),
+                       bool(place & _VALUES_ON_CHIP), bool(place & _TABLES_ON_CHIP))
+
+
+def _on(dev: torch.device):
+    """A guard that makes ``dev`` the current device, where it is not."""
+    return (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
+            else torch.cuda.device(dev))
 
 
 def _launch(tables: CodeTables, values: torch.Tensor, erased: torch.Tensor,
             iters: int, *, adaptive: bool,
             budgets: torch.Tensor | None = None):
-    """Launch the kernel on ``values (B, N, V)`` / ``erased (B, N)``;
-    returns ``(values, erased, rounds)`` (``rounds`` (B,) int32 for the
-    adaptive contract, else None).  Past the shared memory a block may
-    hold, each block's state goes to a device-memory scratch."""
+    """Launch the kernel on ``values (B, N, V)`` / ``erased (B, N)``, or on
+    one pattern's ``values (N, V)`` / ``erased (N,)``; returns ``(values,
+    erased, rounds)`` of the same shapes (``rounds`` int32, ``(B,)`` or 0-d,
+    for the adaptive contract, else None).  Where a block's state, values
+    and tables live is :func:`table_layout`'s dispatch by shape."""
     if values.device.type != "cuda":
         raise ValueError(f"no decode for device {values.device}")
-    lib = _lib()
     idx, coeff, N = tables
     p, r = idx.shape
-    B, _, V = values.shape
+    if r > 65535:
+        raise ValueError(f"the table kernel counts a row's erased neighbours in 16 bits: "
+                         f"table width {r} > 65535")
+    lib = _lib()
+    V = values.shape[-1]
+    B = values.shape[0] if values.ndim == 3 else 1
     dev = values.device
+    col_ptr, col_rows = _column_table(idx, N)
     out_v = torch.empty_like(values)
     out_e = torch.empty_like(erased)
-    rounds = torch.empty(B, dtype=torch.int32, device=dev) if adaptive else None
-    scratch = torch.empty((B, p, V), dtype=torch.float32, device=dev)
-    state = _state(B, N, V, dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    rounds = torch.empty(values.shape[:-2], dtype=torch.int32, device=dev) if adaptive else None
+    place = _place(N, p, r, V, MAX_SMEM_BYTES, True)
+    state = None if place & _STATE_ON_CHIP else torch.empty(
+        -(-V // _COLS_PER_BLOCK) * B * lib.peel_decode_state_bytes(N, p, r), dtype=torch.uint8,
+        device=dev)
+    with _on(dev):
         rc = lib.peel_decode_launch(
-            idx.data_ptr(), coeff.data_ptr(), p, r, values.data_ptr(),
-            erased.data_ptr(), None if budgets is None else budgets.data_ptr(),
+            idx.data_ptr(), coeff.data_ptr(), col_ptr.data_ptr(), col_rows.data_ptr(), p, r,
+            col_rows.numel(), values.data_ptr(), erased.data_ptr(),
+            None if budgets is None else budgets.data_ptr(),
             out_v.data_ptr(), out_e.data_ptr(),
-            None if rounds is None else rounds.data_ptr(), scratch.data_ptr(),
+            None if rounds is None else rounds.data_ptr(),
             None if state is None else state.data_ptr(), B, N, V, iters,
-            int(adaptive), stream)
+            int(adaptive), place, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, lib, "peel_decode")
     return out_v, out_e, rounds
 
@@ -240,10 +358,9 @@ def peel_decode_cuda(tables: CodeTables, values: torch.Tensor,
     _check(tables, values, erased, iters, batched=False)
     if values.device.type == "cpu":
         return ref.decode_table_ref(*tables[:2], values, erased, iters)
-    v, e, _ = _launch(tables, values[None], erased[None], iters,
-                      adaptive=False)
+    v, e, _ = _launch(tables, values, erased, iters, adaptive=False)
     peel_decode_cuda.launches += 1
-    return v[0], e[0]
+    return v, e
 
 
 def peel_decode_batch_cuda(tables: CodeTables, values: torch.Tensor,
@@ -275,10 +392,9 @@ def peel_decode_adaptive_cuda(tables: CodeTables, values: torch.Tensor,
     if values.device.type == "cpu":
         return ref.decode_table_adaptive_ref(*tables[:2], values, erased,
                                              max_iters)
-    v, e, d = _launch(tables, values[None], erased[None], max_iters,
-                      adaptive=True)
+    v, e, d = _launch(tables, values, erased, max_iters, adaptive=True)
     peel_decode_adaptive_cuda.launches += 1
-    return v[0], e[0], d[0]
+    return v, e, d
 
 
 def peel_decode_batch_adaptive_cuda(tables: CodeTables, values: torch.Tensor,

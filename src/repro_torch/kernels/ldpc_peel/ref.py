@@ -26,7 +26,10 @@ neighbour table (no dense H, no ``(B, p, N)`` masks), bit-identical to
 :func:`lo_round`; ``decode_table{,_batch,_adaptive,_batch_adaptive}_ref``
 are the four contracts over it.  They are what the table kernel's
 wrappers run for tensors on the CPU, and what the kernel is held against
-on the card at any N.
+on the card at any N.  :func:`column_table` is the table's column table
+(each column's check rows, ascending) that the kernel reaches a
+coordinate's rows through, and :func:`column_counts` and :func:`column_xors` the per-row counts and XORs of
+erased neighbours it builds and keeps through it.
 
 The SEEDED codes (``csrc/seeded_decode.cu``, ``csrc/seeded_encode.cu``)
 have no table at all: :func:`seeded_rows` regenerates the (column, weight)
@@ -62,7 +65,7 @@ import torch
 __all__ = ["dense_h", "lo_round", "adaptive_loop", "decode_fused_ref",
            "decode_fused_batch_ref", "decode_fused_adaptive_ref",
            "decode_fused_batch_adaptive_ref", "seeded_rows", "seeded_table",
-           "table_round", "seeded_col_rows", "seeded_counts", "decode_seeded_ref",
+           "table_round", "column_table", "column_counts", "column_xors", "seeded_col_rows", "seeded_counts", "decode_seeded_ref",
            "decode_seeded_batch_ref",
            "decode_seeded_adaptive_ref", "decode_seeded_batch_adaptive_ref",
            "decode_table_ref", "decode_table_batch_ref", "decode_table_adaptive_ref",
@@ -254,6 +257,53 @@ def table_round(idx: torch.Tensor, w: torch.Tensor, vals: torch.Tensor,
     take = winner.clamp(max=p - 1)[..., None].expand_as(vals)
     vals = torch.where(resolved[..., None], torch.gather(new_val, 1, take), vals)
     return vals, e & ~resolved
+
+
+def column_table(check_idx: torch.Tensor, N: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The column table of a neighbour table ``check_idx (p, r)`` whose
+    padding slots hold the sentinel ``N``: ``(col_ptr (N + 1,), col_rows
+    (E,))`` int32 on its device, column j's check rows in ascending order in
+    ``col_rows[col_ptr[j]:col_ptr[j + 1]]``, one per table entry in
+    ``[0, N)`` (the padding skipped), as the table kernel reads it."""
+    p, r = check_idx.shape
+    dev = check_idx.device
+    flat = check_idx.reshape(-1).long()
+    real = (flat >= 0) & (flat < N)
+    cols = flat[real]
+    rows = torch.arange(p, device=dev).repeat_interleave(r)[real]
+    order = torch.sort(cols, stable=True).indices        # rows stay ascending
+    col_ptr = torch.zeros(N + 1, dtype=torch.int64, device=dev)
+    col_ptr[1:] = torch.bincount(cols, minlength=N).cumsum(0)
+    return col_ptr.to(torch.int32), rows[order].to(torch.int32)
+
+
+def column_xors(col_ptr: torch.Tensor, col_rows: torch.Tensor, p: int,
+                erased: torch.Tensor) -> torch.Tensor:
+    """Each of ``p`` check rows' XOR of the coordinates of ``erased (B, N)``
+    bool among its neighbours: ``(B, p)`` int64, built through the column
+    table as the table kernel builds it (and takes a round's resolved
+    coordinates out of it).  A row of one erased neighbour holds its
+    column.  Bit by bit: each bit of the XOR is the parity of a count."""
+    B, N = erased.shape
+    cols = torch.arange(N, device=erased.device)
+    out = torch.zeros((B, p), dtype=torch.int64, device=erased.device)
+    for b in range(max(N - 1, 1).bit_length()):
+        ones = column_counts(col_ptr, col_rows, p, erased & ((cols >> b) & 1).bool())
+        out |= (ones & 1) << b
+    return out
+
+
+def column_counts(col_ptr: torch.Tensor, col_rows: torch.Tensor, p: int,
+                  erased: torch.Tensor) -> torch.Tensor:
+    """Each of ``p`` check rows' count of the coordinates of ``erased (B,
+    N)`` bool among its neighbours: ``(B, p)`` int64, one added to each row
+    of every erased column through the column table, as the table kernel
+    builds its counts (and takes a round's resolved coordinates off them)."""
+    B, N = erased.shape
+    deg = (col_ptr[1:] - col_ptr[:-1]).long()
+    cnt = torch.zeros((B, p), dtype=torch.int64, device=erased.device)
+    hits = erased.to(torch.int64).repeat_interleave(deg, dim=1)   # (B, E)
+    return cnt.scatter_add_(1, col_rows.long().expand(B, -1), hits)
 
 
 # The same four contracts over a code's neighbour table (``check_idx (p,

@@ -532,15 +532,34 @@ def test_table_state_in_device_memory_equals_shared(cuda, monkeypatch):
                        for x, y in zip(a, b))
 
 
+def _past_shared_stride(tables):
+    """The fewest columns a column of ``tables`` must be spread over (the
+    table times the stride, N times the stride) for a block's state to be
+    past its shared memory, from the state's size as the library gives it."""
+    p, r = tables.check_idx.shape
+    smem_bytes = ops._smem_sizer(True)
+    stride = 1
+    while smem_bytes(tables.N * stride, p, r, 1, 1) <= ops.MAX_SMEM_BYTES:
+        stride += 1
+    return stride
+
+
+def _spread(tables, stride):
+    return tables._replace(check_idx=(tables.check_idx * stride).contiguous(),
+                           N=tables.N * stride)
+
+
 def test_table_kernel_past_shared_memory(cuda):
-    # The (3, 6) code at K = 256 spread over N = 50,000 columns: the state
-    # no longer fits in shared memory, and the decode equals its plain
-    # version and the code's own decode.
+    # The (3, 6) code at K = 256 spread over the fewest columns (about
+    # 890,000) whose state no longer fits in shared memory: the decode equals
+    # its plain version and the code's own decode.
     code = _code("pm1", 256)
     tables = decoder.code_tables(code, cuda)
-    N, stride = 50_000, 97
-    wide = tables._replace(check_idx=(tables.check_idx * stride).contiguous(), N=N)
-    assert ops._smem_bytes(N) > ops.MAX_SMEM_BYTES
+    stride = _past_shared_stride(tables)
+    wide = _spread(tables, stride)
+    N = wide.N
+    assert ops._smem_sizer(True)(N, *tables.check_idx.shape, 1, 1) > ops.MAX_SMEM_BYTES
+    assert not ops.table_layout(wide, 1, 3)[1]
     values, erased, _ = _case(code, 3, 0.4, 6, 3, "pm1")
     v = torch.zeros((N, 3), device=cuda)
     e = torch.zeros(N, dtype=torch.bool, device=cuda)
@@ -554,6 +573,199 @@ def test_table_kernel_past_shared_memory(cuda):
     torch.cuda.synchronize()
     assert torch.equal(ke, pe) and _same(kv, pv) and int(kd) == int(pd) == int(sd)
     assert torch.equal(ke[::stride][:code.N], se) and _same(kv[::stride][:code.N], sv)
+
+
+# The redesigned table decode's edges: one pattern, 8 and 64; 1, 2, 5 and 32
+# payload columns (one block a pattern and up to 8); budgets of 0 beside
+# busy slots; the state on chip at Path A's LDGM (N = 24,576, parity
+# columns of degree 1) and on both sides of a block's shared memory (the
+# (3, 6) code at K = 256 spread over the columns just short of and just past
+# it); row weights 16, 40 and 80 (at f = 0.02 and 0.1 their rows of one
+# erased neighbour act).  Every contract bit for bit against the plain
+# versions, twice, and each wrapper's launches counted once a call.
+_TABLE_CODES = {
+    "regular_K256": lambda: _code("gaussian", 256),
+    "ldgm_N24576": lambda: make_seeded_ldgm(16384, 8192, row_weight=8, seed=0),
+    **{n: (lambda K=K, l=l, r=r: make_seeded_ldpc(K, l=l, r=r, seed=1))
+       for n, (K, l, r) in {"l12_r16": (128, 12, 16), "l20_r40": (160, 20, 40),
+                            "l8_r80": (720, 8, 80)}.items()},
+    "short_of_shared": lambda: _code("pm1", 256),
+    "past_shared": lambda: _code("pm1", 256),
+}
+_TABLE_CASES = (
+    [("regular_K256", B, V, f) for B in (1, 8, 64) for V in (1, 2, 5, 32)
+     for f in (0.0, 0.25, 0.45)]
+    + [("ldgm_N24576", B, V, f) for B in (1, 8) for V in (1, 2) for f in (0.0, 0.1, 0.25, 0.45)]
+    + [(n, B, 2, f) for n in ("l12_r16", "l20_r40", "l8_r80") for B in (1, 8)
+       for f in (0.02, 0.1, 0.25, 0.45)]
+    + [(n, B, V, f) for n in ("short_of_shared", "past_shared") for B in (1, 8)
+       for V in (1, 5) for f in (0.25, 0.45)])
+_TABLES = {}
+
+
+def _table_code(name, dev):
+    if name not in _TABLES:
+        code = _TABLE_CODES[name]()
+        tables = decoder.code_tables(code, dev)
+        if name.endswith("shared"):
+            stride = _past_shared_stride(tables)
+            tables = _spread(tables, stride if name == "past_shared" else stride - 1)
+        _TABLES[name] = tables
+    return _TABLES[name]
+
+
+@pytest.mark.parametrize("name,B,V,f", _TABLE_CASES)
+def test_table_decode_across_the_design_edges(cuda, name, B, V, f):
+    tables = _table_code(name, cuda)
+    N = tables.N
+    idx, w = tables.check_idx, tables.check_coeff
+    p, r = idx.shape
+    in_shared = ops.table_layout(tables, B, V)[1]
+    assert in_shared == (name != "past_shared")
+    assert ops.table_layout(tables, B, V)[0] == (-(-V // 4), B)
+    v, e = _seeded_inputs(N, B, V, f, B + V + int(100 * f), cuda)
+    if name.endswith("shared"):              # the code's columns, spread
+        keep = torch.zeros(N, dtype=torch.bool, device=cuda)
+        keep[idx[idx < N].long()] = True
+        e &= keep
+    budgets = torch.tensor([0, 1, 3, 8, 8, 3, 1, 8] * 8, dtype=torch.int32,
+                           device=cuda)[:B] if B > 1 else torch.tensor([8], dtype=torch.int32,
+                                                                       device=cuda)
+    runs = [(peel_decode_batch_cuda, lambda: peel_decode_batch_cuda(tables, v, e, 8),
+             lambda: ops.ref.decode_table_batch_ref(idx, w, v, e, 8)),
+            (peel_decode_batch_adaptive_cuda,
+             lambda: peel_decode_batch_adaptive_cuda(tables, v, e, budgets),
+             lambda: ops.ref.decode_table_batch_adaptive_ref(idx, w, v, e, budgets))]
+    if B == 1:
+        runs += [(peel_decode_cuda, lambda: peel_decode_cuda(tables, v[0], e[0], 8),
+                  lambda: ops.ref.decode_table_ref(idx, w, v[0], e[0], 8)),
+                 (peel_decode_adaptive_cuda,
+                  lambda: peel_decode_adaptive_cuda(tables, v[0], e[0], N),
+                  lambda: ops.ref.decode_table_adaptive_ref(idx, w, v[0], e[0], N))]
+    peeled = False
+    for wrapper, kern, plain in runs:
+        before = wrapper.launches
+        kout, again = kern(), kern()
+        assert wrapper.launches == before + 2
+        pout = plain()
+        torch.cuda.synchronize()
+        for k, a, q in zip(kout, again, pout):
+            assert torch.equal(k, q) and torch.equal(k, a)
+        assert _same(kout[0], pout[0]) and _same(kout[0], again[0])
+        peeled |= bool((e.reshape(pout[1].shape) & ~pout[1]).any())
+    # wherever a pattern starts with at least 10 rows of one erased neighbour
+    # (p·r·f·(1-f)^(r-1)), something resolves, so the peel runs
+    if p * r * f * (1 - f) ** (r - 1) >= 10 and not name.endswith("shared"):
+        assert peeled
+
+
+@pytest.mark.parametrize("V", [1, 2, 3, 32])
+def test_table_decode_every_placement_equals_plain(cuda, monkeypatch, V):
+    # The (3, 6) code at K = 256 fits every placement; a shared-memory cap
+    # at each placement's own size makes the dispatch choose it: nothing on
+    # chip, the state, the state and values, everything.  All four contracts
+    # bit for bit against the plain versions under each.
+    code = _code("gaussian", 256)
+    tables = decoder.code_tables(code, cuda)
+    p, r = tables.check_idx.shape
+    v, e = _seeded_inputs(code.N, 8, V, 0.4, 50 + V, cuda)
+    budgets = torch.tensor([0, 1, 3, 8, 8, 3, 1, code.N], dtype=torch.int32, device=cuda)
+    idx, w = tables.check_idx, tables.check_coeff
+    runs = [(lambda: peel_decode_batch_cuda(tables, v, e, 8),
+             lambda: ops.ref.decode_table_batch_ref(idx, w, v, e, 8)),
+            (lambda: peel_decode_batch_adaptive_cuda(tables, v, e, budgets),
+             lambda: ops.ref.decode_table_batch_adaptive_ref(idx, w, v, e, budgets)),
+            (lambda: peel_decode_cuda(tables, v[3], e[3], 8),
+             lambda: ops.ref.decode_table_ref(idx, w, v[3], e[3], 8)),
+            (lambda: peel_decode_adaptive_cuda(tables, v[5], e[5], code.N),
+             lambda: ops.ref.decode_table_adaptive_ref(idx, w, v[5], e[5], code.N))]
+    plain = [run() for _, run in runs]
+    for place in (0, 1, 3, 7):
+        monkeypatch.setattr(ops, "MAX_SMEM_BYTES",
+                            ops._smem_sizer(True)(code.N, p, r, V, place) if place else 0)
+        assert ops.table_layout(tables, 8, V).place == place
+        for (kern, _), pout in zip(runs, plain):
+            kout = kern()
+            torch.cuda.synchronize()
+            for k, q in zip(kout, pout):
+                assert torch.equal(k, q), place
+            assert _same(kout[0], pout[0]), place
+
+
+def test_table_smem_mirror_equals_the_library(cuda):
+    # The dispatch on the card sizes a block with the library's own
+    # functions; the CPU tests read their Python mirror.  The two agree at
+    # every placement, at the shapes the port decodes and across the
+    # edges of the layout (one- and two-byte counts, V = 1, 2 and wider,
+    # N off the bitmaps' 128-bit padding, a state past shared memory).
+    lib = ops._lib()
+    shapes = [(40, 20, 6), (2048, 1024, 6), (24576, 8192, 9), (49152, 24576, 6),
+              (890_000, 128, 6), (2049, 1024, 80), (2050, 1023, 255), (4097, 512, 256),
+              (100, 7, 300)]
+    for N, p, r in shapes:
+        assert ops._state_bytes(N, p, r) == lib.peel_decode_state_bytes(N, p, r), (N, p, r)
+        for V in (1, 2, 3, 4, 5, 32):
+            for place in (0, 1, 3, 7):
+                assert (ops._smem_bytes(N, p, r, V, place)
+                        == lib.peel_decode_smem_bytes(N, p, r, V, place)), (N, p, r, V, place)
+    for N, p, r in shapes:
+        tables = ops.CodeTables(torch.zeros((p, r), dtype=torch.int32),
+                                torch.zeros((p, r)), N)
+        on_card = tables._replace(check_idx=tables.check_idx.to(cuda))
+        for V in (1, 2, 32):
+            assert ops.table_layout(tables, 1, V) == ops.table_layout(on_card, 1, V)
+
+
+@pytest.mark.parametrize("B,V", [(1, 2), (8, 32)])
+def test_table_decode_never_reads_erased_entries(cuda, B, V):
+    # NaN and inf in the erased entries of Path A's LDGM: the kernel's
+    # values are those of the plain version (which never reads them either),
+    # bit for bit, and every resolved value is finite.
+    tables = _table_code("ldgm_N24576", cuda)
+    v, e = _seeded_inputs(tables.N, B, V, 0.1, 40 + B, cuda)
+    special = torch.tensor([float("nan"), float("inf"), -float("inf")], device=cuda)
+    fill = special[torch.arange(tables.N * V, device=cuda).reshape(tables.N, V) % 3]
+    v = torch.where(e[..., None], fill, v).contiguous()
+    budgets = torch.tensor([8, 0] * 4, dtype=torch.int32, device=cuda)[:B]
+    for kout, pout in (
+            (peel_decode_batch_cuda(tables, v, e, 8),
+             ops.ref.decode_table_batch_ref(tables.check_idx, tables.check_coeff, v, e, 8)),
+            (peel_decode_batch_adaptive_cuda(tables, v, e, budgets),
+             ops.ref.decode_table_batch_adaptive_ref(tables.check_idx, tables.check_coeff, v,
+                                                     e, budgets))):
+        torch.cuda.synchronize()
+        resolved = e & ~kout[1]
+        assert bool(resolved.any())
+        assert bool(torch.isfinite(kout[0][resolved]).all())
+        assert _same_nan(kout[0], pout[0])
+        for k, q in zip(kout[1:], pout[1:]):
+            assert torch.equal(k, q)
+
+
+def test_table_decode_of_a_replaced_table(cuda):
+    # A table given a new check_idx by _replace (and one changed in place)
+    # decodes as its own plain version: the column table follows check_idx.
+    code = _code("pm1", 256)
+    tables = decoder.code_tables(code, cuda)
+    v, e = _seeded_inputs(code.N, 4, 2, 0.3, 41, cuda)
+    first = peel_decode_batch_cuda(tables, v, e, 6)
+    perm = torch.randperm(code.N, generator=torch.Generator().manual_seed(5))
+    perm = torch.cat([perm, torch.tensor([code.N])]).to(cuda)      # the sentinel stays
+    moved = tables._replace(check_idx=perm[tables.check_idx.long()].int().contiguous())
+    for t in (moved, tables):
+        kout = peel_decode_batch_cuda(t, v, e, 6)
+        pout = ops.ref.decode_table_batch_ref(t.check_idx, t.check_coeff, v, e, 6)
+        torch.cuda.synchronize()
+        assert torch.equal(kout[1], pout[1]) and _same(kout[0], pout[0])
+    assert _same(peel_decode_batch_cuda(tables, v, e, 6)[0], first[0])
+    idx = tables.check_idx.clone()
+    mine = tables._replace(check_idx=idx)
+    peel_decode_batch_cuda(mine, v, e, 6)
+    idx.copy_(moved.check_idx)                        # in place: a new version
+    kout = peel_decode_batch_cuda(mine, v, e, 6)
+    pout = ops.ref.decode_table_batch_ref(idx, tables.check_coeff, v, e, 6)
+    torch.cuda.synchronize()
+    assert torch.equal(kout[1], pout[1]) and _same(kout[0], pout[0])
 
 
 def _same_nan(a, b):

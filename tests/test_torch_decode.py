@@ -223,13 +223,20 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 
 def test_wrapper_rejects_codes_past_shared_memory():
-    # Past the shared memory a block may hold (N ~ 46,000) the wrapper used
-    # to reject the code.  The kernel now keeps its state in device memory
-    # there, so the wrapper takes any N: the (40, 20) code's table spread
-    # over N = 50,000 columns decodes as the code itself does.
+    # Past the shared memory a block may hold the wrapper used to reject
+    # the code.  The kernel now keeps its state in device memory there, so
+    # the wrapper takes any N: the (40, 20) code's table spread over the
+    # fewest columns whose state is past shared memory (N from the state's
+    # size, about 890,000 at two bits a coordinate) decodes as the code
+    # itself does.
     t = _tables()
-    N, stride = 50_000, 1_250
-    assert ops._smem_bytes(N) > ops.MAX_SMEM_BYTES
+    p, r = t.check_idx.shape
+    stride = 1
+    while ops._smem_bytes(t.N * stride, p, r) <= ops.MAX_SMEM_BYTES:
+        stride += 1
+    N = t.N * stride
+    assert ops._smem_bytes(N, p, r) > ops.MAX_SMEM_BYTES
+    assert not ops.table_layout(t._replace(N=N), 1, 2)[1]
     values, erased, _ = _inputs("gaussian", 20, 2, 0.3, 6)
     wide = t._replace(check_idx=t.check_idx * stride, N=N)
     v = torch.zeros((N, 2))
